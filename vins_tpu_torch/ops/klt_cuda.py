@@ -1,0 +1,289 @@
+"""Kernels K1 (pyramidal LK) and K2 (patch NCC): CUDA wrappers and their
+plain PyTorch versions.
+
+K1 replaces `_klt_pyramid_kernel` / `track_pyramid_pallas`
+(vins_tpu/ops/klt_pallas.py:191-326) and K2 replaces `_ncc_kernel` /
+`patch_ncc_pallas` (klt_pallas.py:368-411); the CUDA sources are in
+vins_tpu_torch/csrc/klt.cu. Dispatch is on the tensor's device: a CPU
+tensor takes the plain version, a CUDA tensor launches the kernel or
+raises. Nothing falls back.
+
+The plain versions implement the KERNEL's semantics, not those of the
+JAX package's XLA path (vins_tpu/ops/klt._track_level, which always runs
+`iters` updates): a per-slot early exit once |Δ|² ≤ eps², dead input
+slots skipping every level's loop, and the min-eigenvalue gate applied to
+`ok` while gated slots still iterate. They are written as a masked,
+batched loop over `iters` in which a slot freezes once it stops.
+
+Each CUDA wrapper counts its launches in a plain integer attribute
+(`track_pyramid.launches`, `patch_ncc.launches`), incremented only where
+the kernel is launched.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+from . import native
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+
+def _patches(img: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor,
+             win: int) -> torch.Tensor:
+    """[M, win*win] bilinear patches with top-left corners (cx, cy), the
+    corner clamped to [0, W-win-1.001] (klt_pallas._bilinear_patch). A NaN
+    corner reads at 0, as the CUDA kernel does."""
+    H, W = img.shape
+    cx = torch.clamp(torch.nan_to_num(cx, nan=0.0), 0.0, W - win - 1.001)
+    cy = torch.clamp(torch.nan_to_num(cy, nan=0.0), 0.0, H - win - 1.001)
+    fxf, fyf = torch.floor(cx), torch.floor(cy)
+    ix, iy = fxf.long(), fyf.long()
+    fx = (cx - fxf)[:, None, None]
+    fy = (cy - fyf)[:, None, None]
+    o = torch.arange(win + 1, device=img.device)
+    raw = img[(iy[:, None] + o)[:, :, None], (ix[:, None] + o)[:, None, :]]
+    top = (1 - fy) * ((1 - fx) * raw[:, :-1, :-1] + fx * raw[:, :-1, 1:])
+    bot = fy * ((1 - fx) * raw[:, 1:, :-1] + fx * raw[:, 1:, 1:])
+    return (top + bot).reshape(cx.shape[0], win * win)
+
+
+def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(x, dtype=torch.float32, device=like.device)
+
+
+def _pyramid_flow_plain(pyr_prev: Sequence[torch.Tensor],
+                        grads: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+                        pyr_next: Sequence[torch.Tensor],
+                        pts_prev: torch.Tensor, valid: torch.Tensor,
+                        win: int, iters: int, eps: float,
+                        guess: torch.Tensor):
+    """(flow [M,2], ok [M], err [M]) of _klt_pyramid_kernel, starting at
+    the coarsest level with `guess` (that level's pixels)."""
+    L = len(pyr_prev)
+    r = (win - 1) / 2.0
+    area = float(win * win)
+    eps2 = _f32(eps * eps, pts_prev)
+    px, py = pts_prev[:, 0], pts_prev[:, 1]
+    flx, fly = guess[:, 0].clone(), guess[:, 1].clone()
+    alive = valid.clone()
+    ok = alive.clone()
+    err = torch.zeros_like(px)
+    inf = torch.full_like(px, float("inf"))
+    for lvl in range(L - 1, -1, -1):
+        scale = float(2 ** lvl)
+        plx, ply = px / scale, py / scale
+        t = _patches(pyr_prev[lvl], plx - r, ply - r, win)
+        tx = _patches(grads[lvl][0], plx - r, ply - r, win)
+        ty = _patches(grads[lvl][1], plx - r, ply - r, win)
+        a = torch.sum(tx * tx, -1)
+        b = torch.sum(tx * ty, -1)
+        c = torch.sum(ty * ty, -1)
+        det = a * c - b * b
+        tr = a + c
+        min_eig = 0.5 * (tr - torch.sqrt(torch.clamp(tr * tr - 4 * det,
+                                                     min=0.0)))
+        ok = ok & (min_eig / area > 1e-4)
+        inv_det = 1.0 / torch.where(det > 1e-12, det, torch.ones_like(det))
+        i00, i01, i11 = c * inv_det, -b * inv_det, a * inv_det
+
+        d2 = torch.where(alive, inf, torch.zeros_like(px))
+        err_l = torch.zeros_like(px)
+        for _ in range(iters):
+            run = d2 > eps2
+            cur = _patches(pyr_next[lvl], plx + flx - r, ply + fly - r, win)
+            diff = cur - t
+            rx = torch.sum(diff * tx, -1)
+            ry = torch.sum(diff * ty, -1)
+            dx = -(i00 * rx + i01 * ry)
+            dy = -(i01 * rx + i11 * ry)
+            flx = torch.where(run, flx + dx, flx)
+            fly = torch.where(run, fly + dy, fly)
+            err_l = torch.where(run, torch.sum(torch.abs(diff), -1) / area,
+                                err_l)
+            d2 = torch.where(run, dx * dx + dy * dy, d2)
+        err = err_l
+        if lvl > 0:
+            flx, fly = flx * 2.0, fly * 2.0
+    return torch.stack([flx, fly], -1), ok, err
+
+
+def _coarse_guess(pts_prev, init_flow, L):
+    if init_flow is None:
+        return torch.zeros_like(pts_prev)
+    return init_flow / (2.0 ** (L - 1))
+
+
+def track_pyramid_plain(pyr_prev, grads, pyr_next, pts_prev, valid,
+                        win: int, iters: int, eps: float = 0.0,
+                        init_flow: Optional[torch.Tensor] = None):
+    """Plain version of K1: (pts_prev + flow, ok & valid, err)."""
+    flow, ok, err = _pyramid_flow_plain(
+        pyr_prev, grads, pyr_next, pts_prev, valid, win, iters, eps,
+        _coarse_guess(pts_prev, init_flow, len(pyr_prev)))
+    return pts_prev + flow, ok & valid, err
+
+
+def track_level_plain(img_prev, gx, gy, img_next, pts_prev, guess, valid,
+                      win: int, iters: int, eps: float = 0.0):
+    """One level with an arbitrary per-slot guess — the semantics of K4
+    (`track_level_pallas`, klt_pallas.py:67-188), which is K1 at L = 1.
+    Returns (flow, ok, err)."""
+    return _pyramid_flow_plain([img_prev], [(gx, gy)], [img_next],
+                               pts_prev, valid, win, iters, eps, guess)
+
+
+def patch_ncc_plain(img_a: torch.Tensor, img_b: torch.Tensor,
+                    pts_a: torch.Tensor, pts_b: torch.Tensor,
+                    win: int) -> torch.Tensor:
+    """Plain version of K2: zero-mean NCC of [win, win] patches centered
+    at pts_a in img_a and pts_b in img_b."""
+    r = (win - 1) / 2.0
+    ta = _patches(img_a, pts_a[:, 0] - r, pts_a[:, 1] - r, win)
+    tb = _patches(img_b, pts_b[:, 0] - r, pts_b[:, 1] - r, win)
+    area = float(win * win)
+    ta = ta - torch.sum(ta, -1, keepdim=True) / area
+    tb = tb - torch.sum(tb, -1, keepdim=True) / area
+    return torch.sum(ta * tb, -1) * torch.rsqrt(
+        torch.sum(ta * ta, -1) * torch.sum(tb * tb, -1) + 1e-12)
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check_tensor(name, x, shape, dtype, device):
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise ValueError(f"{name} has dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+
+
+def _stream_ptr(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+KERNEL_WIN = 21   # the window csrc/klt.cu is compiled for (klt_window)
+
+
+def _check_win(win: int) -> None:
+    if win != KERNEL_WIN:
+        raise ValueError(f"the CUDA kernels are built for a {KERNEL_WIN}x"
+                         f"{KERNEL_WIN} window, not {win}x{win}")
+
+
+def _track_pyramid_cuda(pyr_prev, grads, pyr_next, pts_prev, valid,
+                        win, iters, eps, init_flow):
+    dev = pts_prev.device
+    M = pts_prev.shape[0]
+    L = len(pyr_prev)
+    f32 = torch.float32
+    _check_win(win)
+    _check_tensor("pts_prev", pts_prev, (M, 2), f32, dev)
+    _check_tensor("valid", valid, (M,), torch.bool, dev)
+    if init_flow is not None:
+        _check_tensor("init_flow", init_flow, (M, 2), f32, dev)
+    planes, Hs, Ws = [], [], []
+    for lvl in range(L):
+        H, W = pyr_prev[lvl].shape
+        if H < win + 2 or W < win + 2:
+            raise ValueError(f"level {lvl} ({H}x{W}) is smaller than the "
+                             f"{win}x{win} window plus its bilinear border")
+        for name, x in (("prev", pyr_prev[lvl]), ("gx", grads[lvl][0]),
+                        ("gy", grads[lvl][1]), ("next", pyr_next[lvl])):
+            _check_tensor(f"{name}[{lvl}]", x, (H, W), f32, dev)
+            planes.append(x.data_ptr())
+        Hs.append(H)
+        Ws.append(W)
+    pts_out = torch.empty((M, 2), dtype=f32, device=dev)
+    ok_out = torch.empty((M,), dtype=torch.bool, device=dev)
+    err_out = torch.empty((M,), dtype=f32, device=dev)
+    c_planes = (ctypes.c_void_p * len(planes))(*planes)
+    c_H = (ctypes.c_int * L)(*Hs)
+    c_W = (ctypes.c_int * L)(*Ws)
+    lib = native.library()
+    status = lib.vins_klt_pyramid(
+        pts_prev.data_ptr(),
+        init_flow.data_ptr() if init_flow is not None else None,
+        valid.data_ptr(), ctypes.addressof(c_planes),
+        ctypes.addressof(c_H), ctypes.addressof(c_W), L, M, win, iters,
+        eps * eps, pts_out.data_ptr(), ok_out.data_ptr(),
+        err_out.data_ptr(), _stream_ptr(dev))
+    native.check(status, "vins_klt_pyramid")
+    return pts_out, ok_out, err_out
+
+
+def _patch_ncc_cuda(img_a, img_b, pts_a, pts_b, win):
+    dev = pts_a.device
+    M = pts_a.shape[0]
+    H, W = img_a.shape
+    f32 = torch.float32
+    _check_win(win)
+    if H < win + 2 or W < win + 2:
+        raise ValueError(f"image ({H}x{W}) is smaller than the {win}x{win}"
+                         " window plus its bilinear border")
+    _check_tensor("img_a", img_a, (H, W), f32, dev)
+    _check_tensor("img_b", img_b, (H, W), f32, dev)
+    _check_tensor("pts_a", pts_a, (M, 2), f32, dev)
+    _check_tensor("pts_b", pts_b, (M, 2), f32, dev)
+    out = torch.empty((M,), dtype=f32, device=dev)
+    status = native.library().vins_patch_ncc(
+        img_a.data_ptr(), img_b.data_ptr(), H, W, pts_a.data_ptr(),
+        pts_b.data_ptr(), M, win, out.data_ptr(), _stream_ptr(dev))
+    native.check(status, "vins_patch_ncc")
+    return out
+
+
+def track_pyramid(pyr_prev: List[torch.Tensor], grads, pyr_next,
+                  pts_prev: torch.Tensor, valid: torch.Tensor, win: int,
+                  iters: int, eps: float = 0.0,
+                  init_flow: Optional[torch.Tensor] = None):
+    """K1: whole-pyramid LK for [M, 2] level-0 points in one launch.
+
+    pyr_prev/pyr_next: per-level [H, W] images (finest first); grads:
+    per-level (gx, gy) of pyr_prev; valid: [M] bool; init_flow: optional
+    [M, 2] level-0 flow prior. Returns (pts_prev + flow, ok & valid, err)
+    as track_pyramid_pallas followed by ops/klt.py:132."""
+    if pts_prev.is_cuda:
+        out = _track_pyramid_cuda(pyr_prev, grads, pyr_next, pts_prev,
+                                  valid, win, iters, eps, init_flow)
+        track_pyramid.launches += 1
+        return out
+    if pts_prev.device.type != "cpu":
+        raise ValueError(f"track_pyramid: unsupported device "
+                         f"{pts_prev.device}")
+    return track_pyramid_plain(pyr_prev, grads, pyr_next, pts_prev, valid,
+                               win, iters, eps, init_flow)
+
+
+def patch_ncc(img_a: torch.Tensor, img_b: torch.Tensor,
+              pts_a: torch.Tensor, pts_b: torch.Tensor,
+              win: int) -> torch.Tensor:
+    """K2: zero-mean NCC of [win, win] patches, one value per slot."""
+    if pts_a.is_cuda:
+        out = _patch_ncc_cuda(img_a, img_b, pts_a, pts_b, win)
+        patch_ncc.launches += 1
+        return out
+    if pts_a.device.type != "cpu":
+        raise ValueError(f"patch_ncc: unsupported device {pts_a.device}")
+    return patch_ncc_plain(img_a, img_b, pts_a, pts_b, win)
+
+
+track_pyramid.launches = 0
+patch_ncc.launches = 0
+
+
+def reset_launch_counts() -> None:
+    track_pyramid.launches = 0
+    patch_ncc.launches = 0

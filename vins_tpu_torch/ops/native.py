@@ -1,0 +1,109 @@
+"""Build and load the port's CUDA kernels (csrc/*.cu) as one shared library.
+
+The library is compiled with nvcc for sm_90a into
+vins_tpu_torch/_build/libvins_kernels.so at first CUDA use — never at
+import — from the sources in this checkout only, and rebuilt whenever a
+source is newer than the library. It has a plain C interface and is
+bound with ctypes (the same pattern as native/Makefile with
+vins_tpu/io/native_loader.py), so the build needs nvcc alone: no ninja,
+no PyTorch headers.
+"""
+from __future__ import annotations
+
+import ctypes
+import glob
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+LIB_PATH = os.path.join(BUILD_DIR, "libvins_kernels.so")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_VP = ctypes.c_void_p
+_ARGTYPES = {
+    # pts, init_flow, valid, planes, Hs, Ws, L, M, win, iters, eps2,
+    # pts_out, ok_out, err_out, stream
+    "vins_klt_pyramid": [_VP, _VP, _VP, _VP, _VP, _VP, ctypes.c_int,
+                         ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                         ctypes.c_float, _VP, _VP, _VP, _VP],
+    # img_a, img_b, H, W, pts_a, pts_b, M, win, out, stream
+    "vins_patch_ncc": [_VP, _VP, ctypes.c_int, ctypes.c_int, _VP, _VP,
+                       ctypes.c_int, ctypes.c_int, _VP, _VP],
+}
+
+_lock = threading.Lock()
+_lib = None
+build_info: dict = {}
+
+
+def _nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin",
+                              "nvcc"),
+                 shutil.which("nvcc") or "",
+                 "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
+                       "(set CUDA_HOME or put nvcc on PATH)")
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu"))
+                  + glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+
+
+def _stale() -> bool:
+    if not os.path.exists(LIB_PATH):
+        return True
+    built = os.path.getmtime(LIB_PATH)
+    return any(os.path.getmtime(s) > built for s in _sources())
+
+
+def build() -> dict:
+    """Compile csrc/*.cu into LIB_PATH if it is missing or stale.
+    Returns {"seconds": ..., "rebuilt": bool, "ptxas": compiler report}."""
+    if not _stale():
+        return {"seconds": 0.0, "rebuilt": False, "ptxas": ""}
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{LIB_PATH}.tmp{os.getpid()}"
+    cu = [s for s in _sources() if s.endswith(".cu")]
+    cmd = [_nvcc()] + NVCC_FLAGS + ["-o", tmp] + cu
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError("nvcc failed (exit %d):\n%s\n%s" % (
+            proc.returncode, " ".join(cmd), proc.stderr[-8000:]))
+    os.replace(tmp, LIB_PATH)
+    return {"seconds": time.perf_counter() - t0, "rebuilt": True,
+            "ptxas": proc.stderr}
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            build_info.update(build())
+            lib = ctypes.CDLL(LIB_PATH)
+            for name, argtypes in _ARGTYPES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def check(status: int, name: str) -> None:
+    """Raise if a launcher reported a CUDA error (launch refused, bad
+    argument); a fault during the run surfaces at the next synchronize."""
+    if status != 0:
+        import torch
+        msg = torch.cuda.get_device_name() if torch.cuda.is_available() \
+            else "no device"
+        raise RuntimeError(f"{name}: CUDA error {status} on {msg}")

@@ -1,0 +1,105 @@
+"""Batched fixed-hypothesis 8-point F-RANSAC (port of
+vins_tpu/ops/ransac.ransac_fundamental).
+
+The reference samples each hypothesis's minimal set by Gumbel-top-k over
+the valid points with jax.random, whose bits torch cannot reproduce, so
+the noise is an input here: pass `gumbel` [n_hyps, N] (tests replay the
+JAX key chain into it) or a torch.Generator to draw it from.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+
+def _normalize_points(pts: torch.Tensor, valid: torch.Tensor):
+    """Hartley normalization over the valid rows (invalid rows excluded
+    with where, so a NaN there cannot poison the mean)."""
+    w = valid.to(pts.dtype)[:, None]
+    pts_safe = torch.where(valid[:, None], pts, torch.zeros_like(pts))
+    n = torch.clamp(torch.sum(w), min=1.0)
+    mean = torch.sum(pts_safe * w, 0) / n
+    d = torch.sqrt(torch.sum((pts_safe - mean) ** 2, -1) + 1e-12)
+    scale = 1.41421356 / torch.clamp(torch.sum(d * valid) / n, min=1e-9)
+    zero = torch.zeros_like(scale)
+    one = torch.ones_like(scale)
+    T = torch.stack([
+        torch.stack([scale, zero, -scale * mean[0]]),
+        torch.stack([zero, scale, -scale * mean[1]]),
+        torch.stack([zero, zero, one])])
+    return (pts - mean) * scale, T
+
+
+def _eight_point(p1: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:
+    """[B, 8, 2] correspondences -> [B, 3, 3] F (no rank-2 projection):
+    the null vector of the 8x9 system from a complete QR of Aᵀ."""
+    x1, y1 = p1[..., 0], p1[..., 1]
+    x2, y2 = p2[..., 0], p2[..., 1]
+    A = torch.stack([x2 * x1, x2 * y1, x2, y2 * x1, y2 * y1, y2, x1, y1,
+                     torch.ones_like(x1)], -1)             # [B, 8, 9]
+    Q, _ = torch.linalg.qr(A.transpose(-1, -2), mode="complete")
+    return Q[..., :, -1].reshape(A.shape[:-2] + (3, 3))
+
+
+def _sampson_dist(F: torch.Tensor, p1: torch.Tensor,
+                  p2: torch.Tensor) -> torch.Tensor:
+    """[B, N] Sampson distances of [N, 2] correspondences under [B,3,3]."""
+    ones = torch.ones_like(p1[:, :1])
+    x1 = torch.cat([p1, ones], -1)
+    x2 = torch.cat([p2, ones], -1)
+    Fx1 = torch.einsum("nj,bij->bni", x1, F)       # F @ x1
+    Ftx2 = torch.einsum("ni,bij->bnj", x2, F)      # Fᵀ @ x2
+    num = torch.sum(x2[None] * Fx1, -1) ** 2
+    den = (Fx1[..., 0] ** 2 + Fx1[..., 1] ** 2 + Ftx2[..., 0] ** 2
+           + Ftx2[..., 1] ** 2)
+    return num / torch.clamp(den, min=1e-12)
+
+
+class RansacResult(NamedTuple):
+    model: torch.Tensor      # [3, 3]
+    inliers: torch.Tensor    # [N] bool
+    n_inliers: torch.Tensor  # []
+
+
+def gumbel_noise(n_hyps: int, N: int, generator: torch.Generator,
+                 dtype=torch.float32) -> torch.Tensor:
+    """[n_hyps, N] standard Gumbel draws from `generator`."""
+    u = torch.rand((n_hyps, N), generator=generator, dtype=dtype,
+                   device=generator.device)
+    u = torch.clamp(u, min=torch.finfo(dtype).tiny)
+    return -torch.log(-torch.log(u))
+
+
+def ransac_fundamental(p1: torch.Tensor, p2: torch.Tensor,
+                       valid: torch.Tensor, n_hyps: int = 256,
+                       thresh: float = 1e-5,
+                       gumbel: Optional[torch.Tensor] = None,
+                       generator: Optional[torch.Generator] = None
+                       ) -> RansacResult:
+    """Batched 8-point F-RANSAC over [N, 2] correspondences.
+
+    Hypothesis h fits the 8 valid points with the largest
+    gumbel[h] + log(valid) (Gumbel-top-k, distinct within a hypothesis);
+    all hypotheses are scored by Sampson distance in one [n_hyps, N]
+    pass and the first with the most inliers wins."""
+    N = p1.shape[0]
+    if gumbel is None:
+        gumbel = gumbel_noise(n_hyps, N, generator, p1.dtype)
+    pn1, T1 = _normalize_points(p1, valid)
+    pn2, T2 = _normalize_points(p2, valid)
+    logits = torch.where(valid, 0.0, float("-inf")).to(p1.dtype)
+    _, idx = torch.topk(gumbel + logits, 8, dim=-1)          # [h, 8]
+    Fh = _eight_point(pn1[idx], pn2[idx])
+    Fs = T2.T @ Fh @ T1                                      # [h, 3, 3]
+    d = _sampson_dist(Fs, p1, p2)
+    inl = (d < thresh) & valid[None, :]
+    counts = torch.sum(inl, 1)
+    # index_select keeps the winner's index on the device (indexing with a
+    # device scalar would read it back to the host).
+    best = torch.argmax(counts)[None]
+    pick = lambda x: torch.index_select(x, 0, best)[0]
+    U, S, Vh = torch.linalg.svd(pick(Fs))
+    S = torch.cat([S[:2], torch.zeros_like(S[2:])])
+    return RansacResult(model=U @ torch.diag(S) @ Vh, inliers=pick(inl),
+                        n_inliers=pick(counts))
