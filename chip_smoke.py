@@ -3,19 +3,34 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero, and no result line is printed):
-  1. device  — requires torch.cuda.is_available(); prints the card's name
-               and power limit as nvidia-smi reports them;
-  2. build   — compiles vins_tpu_torch/csrc/*.cu with nvcc (sm_90a);
-  3. kernels — K1 (pyramidal LK) and K2 (patch NCC) against their plain
-               PyTorch versions on the card, at the main path's shapes
-               (M = 128 slots, 640x480 frames, 3 levels, win 21, 10
-               iterations, eps 0.01), with kernel and plain times;
-  4. slice   — the streaming main path at default_config() with loop
-               closure off: VinsSystem.process_stream over 192 rendered
-               frames (bootstrap from ground truth, then blocks of 48),
-               checked for finite poses, aligned ATE under 0.15 m and
-               kernel launches on every tracked frame; prints frames/s
-               and host syncs per block.
+  1. device   — requires torch.cuda.is_available(); prints the card's name
+                and power limit as nvidia-smi reports them;
+  2. build    — compiles vins_tpu_torch/csrc/*.cu with nvcc (sm_90a), one
+                nvcc per source, all started together;
+  3. kernels  — every kernel against its plain PyTorch version on the card,
+                at the main path's shapes, with kernel and plain times and
+                the least time the card could take (bound):
+                K1 pyramidal LK and K2 patch NCC (M = 128 slots, 640x480
+                frames, 3 levels, win 21, 10 iterations, eps 0.01),
+                K4 one LK level (level 0 of the same shapes),
+                K3 BRIEF words (N = 512 keyframe keypoints and N = 128
+                tracked features on a blurred 640x480 frame, border
+                keypoints and invalid rows included; words identical);
+  4. loop     — the default system, VinsSystem(cfg) with loop closure on,
+                at default_config() on bench.py's revisiting circle
+                (w = 0.7, bob 0.15): ground-truth bootstrap, then 720
+                frames (2.7 laps) in blocks of 48; fails without finite
+                poses, a verified loop hit, a pose-graph run, a ride-time
+                attach and a K3 launch per inserted keyframe;
+  5. loop-off — VinsSystem(cfg, use_loop=False) over 192 frames of the
+                slower w = 0.35 circle, checked for finite poses and an
+                aligned ATE under 0.15 m.
+Kernel launch counts are set to 0 just before each system run and read
+just after it; every kernel on a run's path must have launched there.
+Each system run also counts its synchronizing CUDA calls block by block
+(torch.cuda.set_sync_debug_mode("warn")). A kernel's bound counts the
+bytes its inputs need (the pixels under the windows or taps it reads,
+overlaps once) and the operations of this run's iterations.
 Then one JSON line with the kernels, and the last line
 {"ok": true, "device": {...}}. Extra detail goes to
 smoke_out/chip_smoke.json. Imports nothing of JAX.
@@ -31,18 +46,40 @@ import warnings
 
 import numpy as np
 
-N_FRAMES = 192          # 31 bootstrap frames, then 3 blocks of 48 and 17
 BLOCK = 48
-# The trajectory of tests/test_stream_parity.py (w = 0.35 rad/s), on which
-# its 0.15 m bound on the aligned ATE was set. On bench.py's faster circle
-# (w = 0.7) the reference's own estimate drifts past that bound after the
-# first block, and the port tracks the reference there (PERF.md).
-TRAJ = dict(w=0.35, bob=0.15)
 SEED = 7
+# Loop-off run: the trajectory of tests/test_stream_parity.py (w = 0.35
+# rad/s), on which its 0.15 m bound on the aligned ATE was set.
+N_FRAMES_OFF = 192      # 31 bootstrap frames, then 3 blocks of 48 and 17
+TRAJ_OFF = dict(w=0.35, bob=0.15)
 ATE_MAX = 0.15          # tests/test_stream_parity.py:242, after alignment
+# Loop-on run: bench.py's revisiting circle (bench.py:101-104), where the
+# path comes back on itself within the run. A hit verified on the second
+# lap is staged two blocks after its keyframe, when the view has moved on,
+# so its ride-time attach comes on the third lap: bench.py's 432 frames
+# after bootstrap verify hits and run the pose graph but attach nothing,
+# hence 720. No ATE bound is gated there: the reference's own estimate
+# drifts on this circle.
+N_AFTER_BOOT_LOOP = 720
+TRAJ_LOOP = dict(w=0.7, bob=0.15)
 FLOW_TOL = 1e-3         # px
 NCC_TOL = 1e-4
 OK_AGREE = 0.99
+
+# Published peaks of one H100 SXM: HBM3 bandwidth and dense FP32 rate.
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_FLOP_S = 67e12
+
+# Operation counts of the kernels, per 21x21 window pixel: a bilinear tap
+# is 6 multiplies and 3 adds; K1/K4 read three taps per template pixel and
+# form the 2x2 structure tensor (3 multiply-adds), then per LK iteration
+# read one tap, subtract, and accumulate the two residual products and
+# the absolute error (7 more); K2 reads two taps and accumulates the
+# means, the cross and the two squares (8 more).
+TAP_OPS = 9
+KLT_SETUP_OPS = 3 * TAP_OPS + 6
+KLT_ITER_OPS = TAP_OPS + 7
+NCC_OPS = 2 * TAP_OPS + 8
 
 
 def _fail(msg: str) -> None:
@@ -74,11 +111,75 @@ def _card_line() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
+def _bound(n_bytes: float, n_ops: float) -> dict:
+    """Least time for the work: the larger of bytes over the memory rate
+    and float32 operations over the peak rate."""
+    t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+    t_ops = n_ops / PEAK_F32_FLOP_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_us": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": n_bytes, "operations": n_ops}
+
+
+def _klt_ops(iters_run, live_per_level, win: int) -> float:
+    area = win * win
+    return float(sum(area * (KLT_SETUP_OPS * n_live
+                             + KLT_ITER_OPS * int(it.sum()))
+                     for it, n_live in zip(iters_run, live_per_level)))
+
+
+def _pixels_read(shape, x0, y0, offs) -> int:
+    """Distinct pixels of an [H, W] plane at (x0 + dx, y0 + dy) for every
+    base (x0, y0) [n] and offset (dx, dy) in offs [k, 2]: what a kernel
+    that reads those pixels must move, overlaps counted once."""
+    import torch
+    H, W = shape
+    mask = torch.zeros(H * W, dtype=torch.bool, device=x0.device)
+    idx = ((y0[:, None] + offs[None, :, 1]) * W
+           + (x0[:, None] + offs[None, :, 0]))
+    mask[idx.reshape(-1)] = True
+    return int(mask.sum())
+
+
+def _window_pixels(plane, centers, win: int) -> int:
+    """Distinct pixels of `plane` under the bilinear (win + 1)^2 windows
+    centred at centers [n, 2], each corner clamped as the kernels clamp it
+    (klt_cuda._patches)."""
+    import torch
+    H, W = plane.shape
+    r = (win - 1) / 2.0
+    corner = [torch.floor(torch.clamp(torch.nan_to_num(c - r, nan=0.0), 0.0,
+                                      n - win - 1.001)).long()
+              for c, n in ((centers[:, 0], W), (centers[:, 1], H))]
+    o = torch.arange(win + 1, device=plane.device)
+    offs = torch.stack(torch.meshgrid(o, o, indexing="xy"), -1).reshape(-1, 2)
+    return _pixels_read((H, W), corner[0], corner[1], offs)
+
+
+def _brief_pixels(blurred, pts, valid, pattern) -> int:
+    """Distinct pixels that the taps of the valid keypoints read: the 2x2
+    neighbourhood of each of the 512 taps inside the clamped 49x49 patch
+    (brief_cuda.extract_brief_words_plain)."""
+    import torch
+    from vins_tpu_torch.ops import brief_cuda
+    H, W = blurred.shape
+    half, pw = brief_cuda.PATCH_HALF, brief_cuda.PATCH_WIN
+    base = [torch.floor(torch.clamp(torch.nan_to_num(c - half, nan=0.0), 0.0,
+                                    n - pw - 1.001)).long()[valid] + half
+            for c, n in ((pts[:, 0], W), (pts[:, 1], H))]
+    taps = torch.cat([pattern[:, :2], pattern[:, 2:]]).long()
+    quad = torch.tensor([[0, 0], [1, 0], [0, 1], [1, 1]],
+                        device=blurred.device)
+    offs = (taps[:, None, :] + quad[None]).reshape(-1, 2)
+    return _pixels_read((H, W), base[0], base[1], offs)
+
+
 def frame_pair(cfg, device):
-    """Two consecutive rendered frames of the slice's trajectory, prepared
-    as the main path prepares them (CLAHE, pyramid, Scharr gradients),
-    and 128 slots: Shi–Tomasi corners of the first frame, a third of them
-    dead, plus border points."""
+    """Two consecutive rendered frames of the loop-off trajectory, the raw
+    first frame and its prep as the main path prepares it (CLAHE, pyramid,
+    Scharr gradients), and 128 slots: Shi–Tomasi corners of the first
+    frame, a third of them dead, plus border points."""
     import torch
     from vins_tpu_torch.io import synthetic
     from vins_tpu_torch.ops import corners
@@ -86,7 +187,7 @@ def frame_pair(cfg, device):
 
     seq = synthetic.make_synthetic_sequence(
         cfg, n_frames=2, n_landmarks=50, seed=SEED, frame_dt=1.0 / 30.0,
-        traj_kwargs=TRAJ, imu_per_frame=4, device=device)
+        traj_kwargs=TRAJ_OFF, imu_per_frame=4, device=device)
     imgs = synthetic.render_sequence_images(seq, cfg, seed=SEED,
                                             device=device)
     pyrs, grads = precompute_block(imgs, cfg)
@@ -106,23 +207,51 @@ def frame_pair(cfg, device):
     level = lambda k: [p[k].contiguous() for p in pyrs]
     lgrad = lambda k: [(g[0][k].contiguous(), g[1][k].contiguous())
                        for g in grads]
-    return level(0), lgrad(0), level(1), lgrad(1), pts.contiguous(), valid
+    return (level(0), lgrad(0), level(1), lgrad(1), pts.contiguous(), valid,
+            imgs[0].contiguous())
+
+
+def brief_inputs(raw, n: int, device):
+    """The blurred frame extract_brief reads and n keypoints: FAST corners
+    of the raw frame, 8 of them moved within 25 px of the borders, a third
+    of the rows invalid."""
+    import torch
+    from vins_tpu_torch.ops import corners, image
+
+    H, W = raw.shape
+    blurred = image.gaussian_blur(raw, 2.0).contiguous()
+    pick = corners.select_corners_grid(
+        corners.fast_score(raw),
+        torch.zeros((H // 8, W // 8), dtype=torch.bool, device=device), n, 8)
+    pts = pick.pts[:n].clone()
+    pts[:8] = torch.tensor(
+        [[0.0, 0.0], [W - 1.0, H - 1.0], [3.25, H - 2.5], [W - 20.5, 4.75],
+         [24.5, H / 2], [W / 2, 2.25], [W - 1.0, 240.6], [0.5, H - 24.9]],
+        device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 1)
+    valid = torch.rand(n, generator=gen, device=device) > 0.33
+    valid[:8] = True
+    return blurred, pts.contiguous(), valid.contiguous()
 
 
 def kernel_phase(cfg, device) -> list:
     import torch
-    from vins_tpu_torch.ops import klt_cuda
+    from vins_tpu_torch.ops import brief, brief_cuda, klt_cuda
 
     fe = cfg.frontend
     win, iters, eps = fe.klt_window, fe.klt_iters, fe.klt_eps
-    pyr0, g0, pyr1, g1, pts, valid = frame_pair(cfg, device)
+    pyr0, g0, pyr1, g1, pts, valid, raw = frame_pair(cfg, device)
+    M = pts.shape[0]
+    f4 = 4.0
 
     # K1's forward pass, then the backward pass seeded with the negated
     # forward flow, as track_pyramid_fb runs them.
     p_k, ok_k, e_k = klt_cuda.track_pyramid(pyr0, g0, pyr1, pts, valid,
                                             win, iters, eps)
-    p_p, ok_p, e_p = klt_cuda.track_pyramid_plain(pyr0, g0, pyr1, pts,
-                                                  valid, win, iters, eps)
+    iters_k1 = []
+    p_p, ok_p, e_p = klt_cuda.track_pyramid_plain(
+        pyr0, g0, pyr1, pts, valid, win, iters, eps, iters_run=iters_k1)
     bwd = (pyr1, g1, pyr0, p_k, ok_k, win, iters, eps, pts - p_k)
     b_k = klt_cuda.track_pyramid(*bwd)
     b_p = klt_cuda.track_pyramid_plain(*bwd)
@@ -147,6 +276,39 @@ def kernel_phase(cfg, device) -> list:
         pyr0, g0, pyr1, pts, valid, win, iters, eps))
     ms_p1 = _time_ms(lambda: klt_cuda.track_pyramid_plain(
         pyr0, g0, pyr1, pts, valid, win, iters, eps), reps=5)
+    # Bytes the function needs: per level, the prev, gx and gy windows
+    # around each live slot's point and the next-frame window around its
+    # tracked point (dead slots need no reads), overlaps counted once.
+    n_live = int(valid.sum())
+    k1_px = sum(3 * _window_pixels(p, pts[valid] / 2.0 ** lvl, win)
+                + _window_pixels(p, p_k[valid] / 2.0 ** lvl, win)
+                for lvl, p in enumerate(pyr0))
+    b_k1 = _bound(k1_px * f4 + M * (8 + 1) + M * (8 + 1 + 4),
+                  _klt_ops(iters_k1, [n_live] * len(pyr0), win))
+
+    # K4: K1's kernel at one level (level 0), with a per-slot guess (half
+    # the forward flow), against its plain version.
+    guess = (0.5 * (p_k - pts)).contiguous()
+    lvl_args = (pyr0[0], g0[0][0], g0[0][1], pyr1[0], pts, guess, valid,
+                win, iters, eps)
+    f4_k, ok4_k, e4_k = klt_cuda.track_level(*lvl_args)
+    iters_k4 = []
+    f4_p, ok4_p, e4_p = klt_cuda.track_level_plain(*lvl_args,
+                                                   iters_run=iters_k4)
+    torch.cuda.synchronize()
+    if not bool(torch.equal(ok4_k, ok4_p)):
+        _fail(f"K4 ok differs on slots "
+              f"{torch.nonzero(ok4_k != ok4_p).flatten().tolist()}")
+    both = ok4_k & ok4_p
+    k4_err = float((f4_k - f4_p)[both].abs().max()) if both.any() else 0.0
+    if not np.isfinite(k4_err) or k4_err > FLOW_TOL:
+        _fail(f"K4 flow differs from its plain version by {k4_err} px")
+    ms_k4 = _time_ms(lambda: klt_cuda.track_level(*lvl_args))
+    ms_p4 = _time_ms(lambda: klt_cuda.track_level_plain(*lvl_args), reps=5)
+    k4_px = (3 * _window_pixels(pyr0[0], pts[valid], win)
+             + _window_pixels(pyr0[0], (pts + f4_k)[valid], win))
+    b_k4 = _bound(k4_px * f4 + M * (8 + 8 + 1) + M * (8 + 1 + 4),
+                  _klt_ops(iters_k4, [n_live], win))
 
     # K2 on the forward result, as track_pyramid_fb calls it.
     n_k = klt_cuda.patch_ncc(pyr0[0], pyr1[0], pts, p_k, win)
@@ -159,42 +321,180 @@ def kernel_phase(cfg, device) -> list:
                                                 win))
     ms_p2 = _time_ms(lambda: klt_cuda.patch_ncc_plain(pyr0[0], pyr1[0], pts,
                                                       p_k, win))
+    # K2 scores every slot, live or not: one window per slot in each image.
+    k2_px = (_window_pixels(pyr0[0], pts, win)
+             + _window_pixels(pyr1[0], p_k, win))
+    b_k2 = _bound(k2_px * f4 + 2 * M * 8 + M * 4, M * win * win * NCC_OPS)
+
+    # K3 at the keyframe-insert shape (N = 512) and the attach shape
+    # (N = 128): the words must equal the plain version's bit for bit.
+    pattern = brief.pattern_tensor(device)
+    k3 = {}
+    for n in (cfg.loop.max_kf_features, fe.max_features):
+        blurred, kp, kv = brief_inputs(raw, n, device)
+        args = (blurred, kp, kv, pattern)
+        w_k = brief_cuda.extract_brief_words(*args)
+        w_p = brief_cuda.extract_brief_words_plain(*args)
+        torch.cuda.synchronize()
+        n_diff = int((w_k != w_p).sum())
+        if n_diff:
+            _fail(f"K3 words differ from the plain version at N = {n} "
+                  f"({n_diff} of {w_k.numel()} words)")
+        # Only valid rows need their taps read and compared.
+        k3[n] = dict(
+            ms=_time_ms(lambda: brief_cuda.extract_brief_words(*args)),
+            plain_ms=_time_ms(
+                lambda: brief_cuda.extract_brief_words_plain(*args)),
+            **_bound(_brief_pixels(blurred, kp, kv, pattern) * f4
+                     + n * (8 + 1) + pattern.numel() * 4
+                     + n * brief_cuda.BRIEF_WORDS * 4,
+                     int(kv.sum()) * brief_cuda.BRIEF_BITS
+                     * (2 * TAP_OPS + 1)))
+    n_ins, n_att = cfg.loop.max_kf_features, fe.max_features
+
     print(f"K1 klt_pyramid: flow err {flow_err:.3g} px, err err "
           f"{err_err:.3g}, ok agree {agree_frac:.4f} "
-          f"({int(ok_k.sum())} tracked of {int(valid.sum())} live); "
-          f"{ms_k1:.4f} ms vs plain {ms_p1:.4f} ms")
+          f"({int(ok_k.sum())} tracked of {n_live} live); "
+          f"{ms_k1:.4f} ms vs plain {ms_p1:.4f} ms, bound "
+          f"{b_k1['bound_us']:.3f} us ({b_k1['bound_by']})")
+    print(f"K4 klt_level: flow err {k4_err:.3g} px, ok identical; "
+          f"{ms_k4:.4f} ms vs plain {ms_p4:.4f} ms, bound "
+          f"{b_k4['bound_us']:.3f} us ({b_k4['bound_by']})")
     print(f"K2 patch_ncc: err {ncc_err:.3g}; {ms_k2:.4f} ms vs plain "
-          f"{ms_p2:.4f} ms")
+          f"{ms_p2:.4f} ms, bound {b_k2['bound_us']:.3f} us "
+          f"({b_k2['bound_by']})")
+    for n, r in k3.items():
+        print(f"K3 brief_words N={n}: words identical; {r['ms']:.4f} ms vs "
+              f"plain {r['plain_ms']:.4f} ms, bound {r['bound_us']:.3f} us "
+              f"({r['bound_by']})")
+
+    def entry(name, source, replaces, err, ms, plain_ms, bound, **extra):
+        return dict(name=name, route="cuda", source=source,
+                    replaces=replaces, launches=0, max_abs_err=err, ms=ms,
+                    plain_ms=plain_ms, bound_ms=bound["bound_ms"],
+                    bound_us=bound["bound_us"], bound_by=bound["bound_by"],
+                    bound_bytes=bound["bytes"],
+                    bound_operations=bound["operations"],
+                    library_ms=None, **extra)
+
+    klt_src = "vins_tpu_torch/csrc/klt.cu"
     return [
-        {"name": "klt_pyramid", "route": "cuda",
-         "source": "vins_tpu_torch/csrc/klt.cu",
-         "replaces": "vins_tpu/ops/klt_pallas.py:191",
-         "launches": 0, "max_abs_err": flow_err, "ms": ms_k1,
-         "plain_ms": ms_p1},
-        {"name": "patch_ncc", "route": "cuda",
-         "source": "vins_tpu_torch/csrc/klt.cu",
-         "replaces": "vins_tpu/ops/klt_pallas.py:368",
-         "launches": 0, "max_abs_err": ncc_err, "ms": ms_k2,
-         "plain_ms": ms_p2},
+        entry("klt_pyramid", klt_src, "vins_tpu/ops/klt_pallas.py:281",
+              flow_err, ms_k1, ms_p1, b_k1),
+        entry("patch_ncc", klt_src, "vins_tpu/ops/klt_pallas.py:387",
+              ncc_err, ms_k2, ms_p2, b_k2),
+        entry("brief_words", "vins_tpu_torch/csrc/brief.cu",
+              "vins_tpu/ops/klt_pallas.py:344", 0.0, k3[n_ins]["ms"],
+              k3[n_ins]["plain_ms"], k3[n_ins],
+              ms_attach=k3[n_att]["ms"],
+              plain_ms_attach=k3[n_att]["plain_ms"],
+              bound_ms_attach=k3[n_att]["bound_ms"]),
+        entry("klt_level", klt_src, "vins_tpu/ops/klt_pallas.py:134",
+              k4_err, ms_k4, ms_p4, b_k4, on_main_path=False),
     ]
 
 
-def slice_phase(cfg, device, n_frames: int = N_FRAMES,
+def _reset_counts() -> None:
+    from vins_tpu_torch.ops import brief_cuda, klt_cuda
+    klt_cuda.reset_launch_counts()
+    brief_cuda.reset_launch_counts()
+
+
+def _read_counts() -> dict:
+    from vins_tpu_torch.ops import brief_cuda, klt_cuda
+    return {"klt_pyramid": klt_cuda.track_pyramid.launches,
+            "patch_ncc": klt_cuda.patch_ncc.launches,
+            "brief_words": brief_cuda.extract_brief_words.launches,
+            "klt_level": klt_cuda.track_level.launches}
+
+
+def _ate(est, gt) -> tuple:
+    from vins_tpu_torch.io.evaluate import ate_rmse
+    raw = float(np.sqrt(np.mean(np.sum((est - gt) ** 2, -1))))
+    return ate_rmse(est, gt).rmse, raw
+
+
+def _stream_counting_syncs(sys_, stream, on_card: bool):
+    """Run stream() with every synchronizing CUDA call reported as a
+    warning (torch.cuda.set_sync_debug_mode("warn")), and split the count
+    at the start of each dispatch_block and of the end-of-stream drain.
+    Returns stream()'s result and one record per segment: its syncs and
+    the verified hits, PACK_LGOOD frames and pose-graph runs it added."""
+    import torch
+
+    marks = []
+
+    def loop_state():
+        st = sys_.loop_stats
+        return (st["hits"], st["good_frames"],
+                sys_.loop.n_optimizes if sys_.loop is not None else 0)
+
+    def marked(kind, fn):
+        def call(*args, **kwargs):
+            marks.append((kind, len(caught), loop_state()))
+            return fn(*args, **kwargs)
+        return call
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        sys_.dispatch_block = marked("block", sys_.dispatch_block)
+        sys_.drain_loop_work = marked("drain", sys_.drain_loop_work)
+        if on_card:
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = stream()
+        finally:
+            if on_card:
+                torch.cuda.set_sync_debug_mode("default")
+            del sys_.dispatch_block, sys_.drain_loop_work
+        ends = [(at, st) for _, at, st in marks[1:]] + [(len(caught),
+                                                         loop_state())]
+    segments = []
+    for (kind, at, st), (at_end, st_end) in zip(marks, ends):
+        segments.append(dict(
+            kind=kind,
+            syncs=sum(1 for w in caught[at:at_end]
+                      if "synchroniz" in str(w.message)),
+            hits=st_end[0] - st[0], attach_frames=st_end[1] - st[1],
+            pose_graph_runs=st_end[2] - st[2]))
+    return out, segments
+
+
+def _sync_summary(segments) -> dict:
+    """Synchronizing CUDA calls per block: every block's count, the
+    median and largest, and the largest among blocks that verified a hit,
+    rode an attached anchor or ran the pose graph."""
+    blocks = [s for s in segments if s["kind"] == "block"]
+    counts = [s["syncs"] for s in blocks]
+
+    def most(key):
+        hit = [s["syncs"] for s in blocks if s[key] > 0]
+        return max(hit) if hit else None
+
+    return dict(per_block=counts,
+                median=float(np.median(counts)) if counts else None,
+                max=max(counts) if counts else None,
+                max_verifying=most("hits"), max_attaching=most("attach_frames"),
+                max_pose_graph=most("pose_graph_runs"),
+                drain=sum(s["syncs"] for s in segments
+                          if s["kind"] == "drain"))
+
+
+def slice_phase(cfg, device, use_loop: bool, traj: dict, n_frames: int,
                 block: int = BLOCK) -> dict:
     """Drive VinsSystem.process_stream over a rendered sequence; returns
-    the measurements. Runs on any device (the CPU takes the kernels'
-    plain versions)."""
+    the measurements, synchronizing CUDA calls per block included. Runs
+    on any device (the CPU takes the kernels' plain versions, and launch
+    and sync counts stay 0 there)."""
     import torch
     from vins_tpu_torch.io import synthetic
-    from vins_tpu_torch.io.evaluate import ate_rmse
-    from vins_tpu_torch.ops import klt_cuda
     from vins_tpu_torch.pipeline import VinsSystem
 
-    sync = (torch.cuda.synchronize if torch.device(device).type == "cuda"
-            else (lambda: None))
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
     seq = synthetic.make_synthetic_sequence(
         cfg, n_frames=n_frames, n_landmarks=300, seed=SEED,
-        frame_dt=1.0 / 30.0, traj_kwargs=TRAJ, imu_per_frame=4,
+        frame_dt=1.0 / 30.0, traj_kwargs=traj, imu_per_frame=4,
         device=device)
     t0 = time.perf_counter()
     imgs = synthetic.render_sequence_images(seq, cfg, seed=SEED,
@@ -203,19 +503,16 @@ def slice_phase(cfg, device, n_frames: int = N_FRAMES,
     render_s = time.perf_counter() - t0
     ts = seq.timestamps.cpu().numpy()
 
-    def system():
-        return VinsSystem(cfg, ext=seq.ext, device=device,
-                          initializer=synthetic.ground_truth_initializer(
-                              seq, cfg))
-
-    sys_ = system()
-    klt_cuda.reset_launch_counts()
+    sys_ = VinsSystem(cfg, ext=seq.ext, device=device, use_loop=use_loop,
+                      initializer=synthetic.ground_truth_initializer(seq, cfg))
+    _reset_counts()
     t0 = time.perf_counter()
-    outs = sys_.process_stream(imgs, seq.chunks, block=block, ts=ts)
+    outs, segments = _stream_counting_syncs(
+        sys_, lambda: sys_.process_stream(imgs, seq.chunks, block=block,
+                                          ts=ts), on_card)
     sync()
     wall = time.perf_counter() - t0
-    launches = {"klt_pyramid": klt_cuda.track_pyramid.launches,
-                "patch_ncc": klt_cuda.patch_ncc.launches}
+    launches = _read_counts()
 
     if len(outs) != n_frames:
         _fail(f"{len(outs)} outputs for {n_frames} frames")
@@ -226,65 +523,92 @@ def slice_phase(cfg, device, n_frames: int = N_FRAMES,
     if not all(o.initialized for o in post):
         _fail("an output after bootstrap is not initialized")
     est = np.stack([o.p for o in post])
+    est_raw = np.stack([o.p_raw for o in post])
     quats = np.stack([o.q for o in post])
-    if not (np.all(np.isfinite(est)) and np.all(np.isfinite(quats))):
+    if not (np.all(np.isfinite(est)) and np.all(np.isfinite(quats))
+            and np.all(np.isfinite(est_raw))):
         _fail("non-finite pose after bootstrap")
     gt = seq.p.cpu().numpy()[init_at:]
-    ate = ate_rmse(est, gt).rmse
-    ate_raw = float(np.sqrt(np.mean(np.sum((est - gt) ** 2, -1))))
-    if ate >= ATE_MAX:
-        _fail(f"aligned ATE RMSE {ate:.4f} m >= {ATE_MAX} m")
+    ate, ate_raw = _ate(est, gt)
+    ate_nc, ate_raw_nc = _ate(est_raw, gt)
+    n_stream = n_frames - init_at - 1
+    block_s = sum(sys_.timings[k] for k in ("dispatch", "sync", "insert",
+                                            "publish", "drain"))
+    res = dict(
+        use_loop=use_loop, frames=n_frames, init_at=init_at,
+        ate_rmse_m=ate, ate_raw_rmse_m=ate_raw,
+        ate_rmse_uncorrected_m=ate_nc, ate_raw_rmse_uncorrected_m=ate_raw_nc,
+        wall_s=wall, render_s=render_s,
+        system_frames_per_s=n_frames / wall,
+        block_frames=n_stream, block_s=block_s,
+        block_frames_per_s=n_stream / block_s if block_s > 0 else 0.0,
+        blocks=sys_.timings["blocks"], timings=dict(sys_.timings),
+        keyframe_syncs_per_block=((sys_.timings["host_syncs"]
+                                   - sys_.timings["blocks"])
+                                  / max(sys_.timings["blocks"], 1)),
+        launches=launches, syncs=_sync_summary(segments),
+        sync_segments=segments)
+    if use_loop:
+        lc = sys_.loop
+        res.update(loop_stats=dict(sys_.loop_stats),
+                   pose_graph_runs=lc.n_optimizes, keyframes_in_db=lc.count,
+                   keyframes_inserted=lc.n_inserts, loop_edges=lc.n_loops,
+                   detect_stats=dict(lc.detect_stats),
+                   t_drift=lc.t_drift.tolist())
     tracked = n_frames - 1          # frame 0 only detects
-    # Only CUDA launches count: on the CPU (a rehearsal at a tiny size)
-    # every call takes the plain version.
-    if torch.device(device).type == "cuda":
+    if on_card:
         if launches["klt_pyramid"] < 2 * tracked:
             _fail(f"K1 launched {launches['klt_pyramid']} times for "
                   f"{tracked} tracked frames")
         if launches["patch_ncc"] < tracked:
             _fail(f"K2 launched {launches['patch_ncc']} times for "
                   f"{tracked} tracked frames")
-    n_stream = n_frames - init_at - 1
-    block_s = (sys_.timings["dispatch"] + sys_.timings["sync"]
-               + sys_.timings["publish"])
-    return dict(
-        frames=n_frames, init_at=init_at, ate_rmse_m=ate,
-        ate_raw_rmse_m=ate_raw,
-        wall_s=wall, render_s=render_s,
-        system_frames_per_s=n_frames / wall,
-        block_frames=n_stream, block_s=block_s,
-        block_frames_per_s=n_stream / block_s if block_s > 0 else 0.0,
-        blocks=sys_.timings["blocks"],
-        keyframe_syncs_per_block=((sys_.timings["host_syncs"]
-                                   - sys_.timings["blocks"])
-                                  / max(sys_.timings["blocks"], 1)),
-        launches=launches, system=system, seq=seq, imgs=imgs, ts=ts)
+    if use_loop:
+        st = res["loop_stats"]
+        if st["hits"] < 1:
+            _fail(f"no verified loop hit (detection {res['detect_stats']})")
+        if res["pose_graph_runs"] < 1:
+            _fail("no pose-graph run")
+        if st["good_frames"] < 1:
+            _fail("no ride-time attach (no frame with PACK_LGOOD)")
+        if on_card and (res["keyframes_inserted"] < 1 or launches[
+                "brief_words"] < res["keyframes_inserted"]):
+            _fail(f"K3 launched {launches['brief_words']} times for "
+                  f"{res['keyframes_inserted']} inserted keyframes")
+    elif ate >= ATE_MAX:
+        _fail(f"aligned ATE RMSE {ate:.4f} m >= {ATE_MAX} m")
+    return res
 
 
-def count_block_syncs(run: dict, block: int = BLOCK) -> int:
-    """Synchronizing CUDA calls in one steady-state block, counted with
-    torch.cuda.set_sync_debug_mode("warn") on a fresh system."""
-    import torch
-    from vins_tpu_torch.core.preintegration import ImuChunk
-
-    sys_ = run["system"]()
-    seq, imgs, ts = run["seq"], run["imgs"], run["ts"]
-    n_boot = run["init_at"] + 1
-    sys_.process_stream(imgs[:n_boot], ImuChunk(*[x[:n_boot]
-                                                  for x in seq.chunks]),
-                        block=block, ts=ts[:n_boot])
-    s, e = n_boot, n_boot + block
-    chunks = ImuChunk(*[x[s:e] for x in seq.chunks])
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            handle = sys_.dispatch_block(imgs[s:e], chunks, ts=ts[s:e])
-            sys_.publish_block(sys_.sync_block(handle))
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    return sum(1 for w in caught if "synchroniz" in str(w.message))
+def _report_run(tag: str, run: dict, card: str) -> None:
+    line = (f"{tag}: {run['frames']} frames, init at frame "
+            f"{run['init_at']}, ATE {run['ate_rmse_m']:.4f} m aligned, "
+            f"{run['ate_raw_rmse_m']:.4f} m raw")
+    if run["use_loop"]:
+        st = run["loop_stats"]
+        line += (f" (without the drift correction "
+                 f"{run['ate_rmse_uncorrected_m']:.4f} m aligned, "
+                 f"{run['ate_raw_rmse_uncorrected_m']:.4f} m raw); "
+                 f"detection {run['detect_stats']}, "
+                 f"{st['hits']} verified hits, {st['staged']} staged, "
+                 f"{st['attached']} attached ({st['good_frames']} frames "
+                 f"with PACK_LGOOD), {st['retired']} retired, "
+                 f"{run['pose_graph_runs']} pose-graph runs, "
+                 f"{run['keyframes_inserted']} keyframes inserted "
+                 f"({run['keyframes_in_db']} in the DB), K3 launched "
+                 f"{run['launches']['brief_words']} times")
+    sy = run["syncs"]
+    line += (f"; {run['system_frames_per_s']:.2f} frames/s end to end, "
+             f"{run['block_frames_per_s']:.2f} frames/s in block mode, "
+             f"synchronizing CUDA calls per {BLOCK}-frame block: median "
+             f"{sy['median']}, max {sy['max']}, max in blocks that verify a "
+             f"hit {sy['max_verifying']}, ride an anchor "
+             f"{sy['max_attaching']}, run the pose graph "
+             f"{sy['max_pose_graph']}, end-of-stream drain {sy['drain']} "
+             f"(per block {sy['per_block']}; "
+             f"{run['keyframe_syncs_per_block']:.1f} keyframe-branch "
+             f"syncs); launches {run['launches']}; {card}")
+    print(line)
 
 
 def main() -> None:
@@ -300,7 +624,7 @@ def main() -> None:
               "cuda": torch.version.cuda}
 
     from vins_tpu_torch import default_config
-    from vins_tpu_torch.ops import klt_cuda, native
+    from vins_tpu_torch.ops import native
 
     t0 = time.perf_counter()
     native.library()
@@ -313,21 +637,17 @@ def main() -> None:
     device = torch.device("cuda", 0)
     kernels = kernel_phase(cfg, device)
 
-    run = slice_phase(cfg, device)
+    n_boot = cfg.freq * (cfg.window.num_frames - 1) + 1
+    run_loop = slice_phase(cfg, device, True, TRAJ_LOOP,
+                           n_boot + N_AFTER_BOOT_LOOP)
+    _report_run("loop", run_loop, card)
+    run_off = slice_phase(cfg, device, False, TRAJ_OFF, N_FRAMES_OFF)
+    _report_run("loop-off", run_off, card)
+
     for k in kernels:
-        k["launches"] = run["launches"][k["name"]]
-    syncs = count_block_syncs(run)
-    print(f"slice: {run['frames']} frames, init at frame {run['init_at']}, "
-          f"ATE {run['ate_rmse_m']:.4f} m aligned, "
-          f"{run['ate_raw_rmse_m']:.4f} m raw; "
-          f"{run['system_frames_per_s']:.2f} frames/s end to end, "
-          f"{run['block_frames_per_s']:.2f} frames/s in block mode, "
-          f"{syncs} synchronizing CUDA calls per {BLOCK}-frame block "
-          f"({run['keyframe_syncs_per_block']:.1f} keyframe-branch syncs); "
-          f"{card}")
-    report["slice"] = {k: v for k, v in run.items()
-                       if k not in ("system", "seq", "imgs", "ts")}
-    report["syncs_per_block"] = syncs
+        k["launches"] = run_loop["launches"][k["name"]]
+        k["launches_loop_off"] = run_off["launches"][k["name"]]
+    report["loop"], report["loop_off"] = run_loop, run_off
     report["kernels"] = kernels
     os.makedirs("smoke_out", exist_ok=True)
     with open(os.path.join("smoke_out", "chip_smoke.json"), "w") as f:

@@ -42,6 +42,9 @@ CFG = VinsConfig(window=WindowConfig(**_WIN))
 TCFG = tc.VinsConfig(window=tc.WindowConfig(**_WIN))
 F = CFG.window.num_frames
 M = CFG.window.max_landmarks
+_LWIN = dict(_WIN, max_landmarks=192)
+LCFG = VinsConfig(window=WindowConfig(**_LWIN))
+LTCFG = tc.VinsConfig(window=tc.WindowConfig(**_LWIN))
 
 
 def _np(x):
@@ -71,25 +74,37 @@ def _same_information(t_prior, j_prior, rtol):
                                   _np(j_prior.weight))
 
 
-@pytest.fixture(scope="module")
-def win():
+def _window_pair(cfg, tcfg, n_landmarks):
     """The JAX synthetic window and its port counterparts."""
-    w = j_syn.make_synthetic_window(CFG, n_landmarks=60, seed=0,
+    Mc = cfg.window.max_landmarks
+    w = j_syn.make_synthetic_window(cfg, n_landmarks=n_landmarks, seed=0,
                                     noise_px=0.3)
     t = dict(
         state=interop.to_torch(jax.device_get(w.state),
-                               WindowState.identity(F, M)),
+                               WindowState.identity(F, Mc)),
         feats=interop.to_torch(jax.device_get(w.feats),
-                               FeatureTable.empty(F, M)),
+                               FeatureTable.empty(F, Mc)),
         chunks=interop.to_torch(
             jax.device_get(w.chunks),
             t_pre.ImuChunk(*[x[None].repeat((F - 1,) + (1,) * x.dim())
                              for x in t_pre.ImuChunk.empty(
-                                 CFG.window.max_imu_per_edge)])),
+                                 cfg.window.max_imu_per_edge)])),
         ext=Extrinsics(torch.as_tensor(_np(w.ext.tic)),
                        torch.as_tensor(_np(w.ext.qic))),
         gravity=torch.as_tensor(_np(w.gravity)))
     return w, t
+
+
+@pytest.fixture(scope="module")
+def win():
+    return _window_pair(CFG, TCFG, 60)
+
+
+@pytest.fixture(scope="module")
+def loop_win():
+    """A window whose table holds enough landmarks for an active loop
+    block (>= 20 valid old observations)."""
+    return _window_pair(LCFG, LTCFG, LCFG.window.max_landmarks)
 
 
 @pytest.fixture(scope="module")
@@ -191,18 +206,19 @@ def test_feature_manager_matches_jax(win):
                msg="slide_new " + name)
 
 
-def _problems(w, t, frame_free=None):
+def _problems(w, t, frame_free=None, cfg=CFG, tcfg=TCFG):
     """The same WindowProblem on both sides, empty prior, inactive loop."""
+    M = cfg.window.max_landmarks
     free = np.ones(F, np.float32) if frame_free is None else frame_free
-    pre_j = jax.vmap(lambda c, a, g: j_pre.propagate(c, a, g, CFG.imu))(
+    pre_j = jax.vmap(lambda c, a, g: j_pre.propagate(c, a, g, cfg.imu))(
         w.chunks, w.state.ba[:-1], w.state.bg[:-1])
     pre_t = t_pre.propagate(t["chunks"], t["state"].ba[:-1],
-                            t["state"].bg[:-1], TCFG.imu)
+                            t["state"].bg[:-1], tcfg.imu)
     pj = j_solver.WindowProblem(
         feats=w.feats, preints=pre_j,
         prior=JPrior.empty(F),
         ext=w.ext, gravity=w.gravity,
-        sqrt_info_proj=jnp.asarray(CFG.camera.focal / 1.5, jnp.float32),
+        sqrt_info_proj=jnp.asarray(cfg.camera.focal / 1.5, jnp.float32),
         frame_free=jnp.asarray(free),
         loop=j_solver.LoopProblem(obs_old=jnp.zeros((M, 2)),
                                   ok=jnp.zeros(M, bool),
@@ -212,7 +228,7 @@ def _problems(w, t, frame_free=None):
         feats=t["feats"], preints=pre_t,
         prior=PriorFactor.empty(F),
         ext=t["ext"], gravity=t["gravity"],
-        sqrt_info_proj=torch.full((), TCFG.camera.focal / 1.5),
+        sqrt_info_proj=torch.full((), tcfg.camera.focal / 1.5),
         frame_free=torch.as_tensor(free),
         loop=t_solver.LoopProblem(obs_old=torch.zeros((M, 2)),
                                   ok=torch.zeros(M, dtype=torch.bool),
@@ -252,6 +268,127 @@ def test_solve_window_with_loop_inactive_matches_jax(win):
     for name in ("p", "q", "v"):
         _close(getattr(out_t, name), getattr(out_j, name), 1e-3, msg=name)
     _close(out_t.inv_depth, out_j.inv_depth, 1e-3, 1e-2, "inv_depth")
+
+
+def _active_loop(w, n_min=20):
+    """An active loop block on the synthetic window: the window's landmarks
+    observed (with 1e-3 noise) from an old pose offset from the newest
+    frame, and that old pose perturbed as the loop pose's initial value.
+    Returns (obs_old [M, 2], ok [M], p_init [3], q_init [4]) as numpy."""
+    from vins_tpu.utils import lie as j_lie
+
+    rng = np.random.default_rng(3)
+    M = w.feats.mask.shape[1]
+    s = w.state
+    pts = _np(j_est.landmark_world_points(s, w.feats, w.ext))
+    p_old = _np(s.p[F - 1]) + np.array([0.08, -0.05, 0.03], np.float32)
+    q_old = _np(j_lie.quat_mul(s.q[F - 1], j_lie.so3_exp_quat(
+        jnp.asarray([0.01, -0.02, 0.04], jnp.float32))))
+    R_old = _np(j_lie.quat_to_rotmat(jnp.asarray(q_old)))
+    R_ic = _np(j_lie.quat_to_rotmat(w.ext.qic))
+    pc = ((pts - p_old) @ R_old - _np(w.ext.tic)) @ R_ic
+    z = pc[:, 2]
+    ok = (_np(w.feats.valid) & (_np(s.inv_depth) > 1e-3) & (z > 0.2)
+          & (np.abs(pc[:, :2] / np.maximum(z, 1e-3)[:, None]) < 1.5).all(1))
+    assert ok.sum() >= n_min
+    obs = np.where(ok[:, None], pc[:, :2] / np.maximum(z, 1e-3)[:, None]
+                   + rng.normal(size=(M, 2)) * 1e-3, 0.0).astype(np.float32)
+    p_init = (p_old + np.array([0.02, 0.01, -0.02], np.float32))
+    q_init = _np(j_lie.quat_mul(jnp.asarray(q_old), j_lie.so3_exp_quat(
+        jnp.asarray([-0.01, 0.005, 0.01], jnp.float32))))
+    return obs, ok, p_init.astype(np.float32), q_init
+
+
+def test_solve_window_with_loop_active_matches_jax(loop_win):
+    """The window solve with an ACTIVE loop block (weight 1, >= 20 valid
+    old observations) and a free loop pose, against the JAX solve, with
+    the tolerances of the inactive test: poses and the solved loop pose
+    within 1e-3, costs to 1e-3 relative, accepted iterations within one.
+    Then one backend_step with the same block as a LoopInput: the refined
+    loop constraint (loop_rel_t, loop_rel_yaw) within 1e-3, loop_good and
+    loop_support equal."""
+    w, t = loop_win
+    M = LCFG.window.max_landmarks
+    obs, ok, p_init, q_init = _active_loop(w)
+    rng = np.random.default_rng(4)
+    dp = rng.normal(size=(F, 3)).astype(np.float32) * 0.02
+    dp[0] = 0.0
+    s_j = w.state._replace(p=w.state.p + dp)
+    s_t = t["state"]._replace(p=t["state"].p + torch.as_tensor(dp))
+    free = np.ones(F, np.float32)
+    free[0] = 0.0
+    pj, pt = _problems(w, t, free, LCFG, LTCFG)
+    pj = pj._replace(loop=j_solver.LoopProblem(
+        obs_old=jnp.asarray(obs), ok=jnp.asarray(ok),
+        frame=jnp.zeros((), jnp.int32), weight=jnp.ones(())))
+    pt = pt._replace(loop=t_solver.LoopProblem(
+        obs_old=torch.as_tensor(obs), ok=torch.as_tensor(ok),
+        frame=torch.zeros((), dtype=torch.int32), weight=torch.ones(())))
+    # A budget of 4 LM iterations on both sides: the converged tail of
+    # this solve takes steps whose gains are at fp32 round-off, and where
+    # the stop test fires there depends on that round-off.
+    solve = jax.jit(lambda s, p: j_solver.solve_window_with_loop(
+        s, jnp.asarray(p_init), jnp.asarray(q_init), p, LCFG,
+        iter_budget=4))
+    out_j, (lp_j, lq_j), stats_j = solve(s_j, pj)
+    out_t, (lp_t, lq_t), stats_t = t_solver.solve_window_with_loop(
+        s_t, torch.as_tensor(p_init), torch.as_tensor(q_init), pt, LTCFG,
+        iter_budget=4)
+    assert abs(int(stats_t.accepted_iters)
+               - int(stats_j.accepted_iters)) <= 1
+    assert float(stats_t.final_cost) < float(stats_t.initial_cost)
+    _close(stats_t.final_cost, stats_j.final_cost, 0.0, 1e-3, "cost")
+    _close(stats_t.initial_cost, stats_j.initial_cost, 0.0, 1e-4, "cost0")
+    for name in ("p", "q", "v"):
+        _close(getattr(out_t, name), getattr(out_j, name), 1e-3, msg=name)
+    _close(out_t.inv_depth, out_j.inv_depth, 1e-3, 1e-2, "inv_depth")
+    _close(lp_t, lp_j, 1e-3, msg="loop_p")
+    _close(lq_t, lq_j, 1e-3, msg="loop_q")
+
+    # The same block through backend_step, from one bootstrapped state.
+    est_j = jax.jit(lambda s, f, c: j_est.BackendState.bootstrap(
+        LCFG, s, f, c, w.ext, w.gravity))(w.state, w.feats, w.chunks)
+    est_t = interop.to_torch(jax.device_get(est_j),
+                             t_est.BackendState.fresh(LTCFG))
+    obs_frame = F - 1
+    ids = _np(est_j.feats.track_id)
+    # Slot-align the old observations with the slid landmark table.
+    src = {int(i): k for k, i in enumerate(_np(w.feats.track_id))}
+    idx = np.array([src.get(int(i), 0) for i in ids])
+    ok2 = ok[idx] & (ids >= 0)
+    obs2 = np.where(ok2[:, None], obs[idx], 0.0).astype(np.float32)
+    assert ok2.sum() >= 20
+    loop_j = j_est.LoopInput(
+        obs_old=jnp.asarray(obs2), ok=jnp.asarray(ok2),
+        ids=jnp.asarray(ids), p_init=jnp.asarray(p_init),
+        q_init=jnp.asarray(q_init), ttl=jnp.asarray(F, jnp.int32),
+        weight=jnp.ones(()))
+    inp_j = j_est.FrameInput(
+        chunk=jax.tree.map(lambda x: x[-1], w.chunks), ids=w.feats.track_id,
+        obs=w.feats.obs[obs_frame],
+        obs_valid=w.feats.mask[obs_frame] & w.feats.valid, loop=loop_j)
+    e2_j, o_j = jax.jit(lambda e, i: j_est.backend_step(
+        e, i, LCFG, w.ext, w.gravity))(est_j, inp_j)
+    inp_t = t_est.FrameInput(
+        chunk=interop.to_torch(jax.device_get(inp_j.chunk),
+                               t_pre.ImuChunk.empty(
+                                   LCFG.window.max_imu_per_edge)),
+        ids=torch.as_tensor(_np(inp_j.ids)),
+        obs=torch.as_tensor(_np(inp_j.obs)),
+        obs_valid=torch.as_tensor(_np(inp_j.obs_valid)),
+        loop=interop.to_torch(jax.device_get(loop_j),
+                              t_est.LoopInput.inactive(M)))
+    e2_t, o_t = t_est.backend_step(est_t, inp_t, LTCFG, est_t_ext(w),
+                                   torch.as_tensor(_np(w.gravity)))
+    assert bool(o_t.loop_good) == bool(o_j.loop_good) is True
+    assert int(o_t.loop_support) == int(o_j.loop_support) >= 10
+    assert bool(o_t.failure) == bool(o_j.failure)
+    _close(o_t.pose_p, o_j.pose_p, 1e-3, msg="pose_p")
+    _close(o_t.loop_rel_t, o_j.loop_rel_t, 1e-3, msg="loop_rel_t")
+    _close(o_t.loop_rel_yaw, o_j.loop_rel_yaw, 1e-3, msg="loop_rel_yaw")
+    for name in ("p", "q"):
+        _close(getattr(e2_t.window, name), getattr(e2_j.window, name), 1e-3,
+               msg=name)
 
 
 def test_marginalization_matches_jax(win):

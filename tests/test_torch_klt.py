@@ -30,7 +30,7 @@ from vins_tpu.ops.klt_pallas import (patch_ncc_pallas, track_level_pallas,
 
 import vins_tpu_torch.config as tc
 from vins_tpu_torch.ops import klt as t_klt
-from vins_tpu_torch.ops import klt_cuda
+from vins_tpu_torch.ops import brief_cuda, klt_cuda
 
 torch.set_num_threads(1)
 
@@ -207,6 +207,12 @@ def test_k4_is_k1_at_one_level(scene):
                                atol=FLOW_TOL)
     np.testing.assert_allclose(err.numpy()[live], np.asarray(e_ref)[live],
                                atol=ERR_TOL)
+    # K4's wrapper takes that plain version for CPU tensors.
+    out = klt_cuda.track_level(
+        s["pt0"][0], s["gt0"][0][0], s["gt0"][0][1], s["pt1"][0],
+        _t(s["pts"]), _t(guess), _t(s["valid"]), WIN, ITERS, EPS)
+    for a, b in zip(out, (flow, ok, err)):
+        assert torch.equal(a, b)
 
 
 def test_wrappers_refuse_other_devices(scene):
@@ -222,13 +228,23 @@ def test_wrappers_refuse_other_devices(scene):
     with pytest.raises(ValueError, match="unsupported device"):
         klt_cuda.patch_ncc(s["pt0"][0], s["pt1"][0], meta(_t(s["pts"])),
                            meta(_t(s["pts"])), WIN)
+    pts = meta(_t(s["pts"]))
+    with pytest.raises(ValueError, match="unsupported device"):
+        klt_cuda.track_level(s["pt0"][0], s["gt0"][0][0], s["gt0"][0][1],
+                             s["pt1"][0], pts, pts, meta(_t(s["valid"])),
+                             WIN, ITERS, EPS)
+    with pytest.raises(ValueError, match="unsupported device"):
+        brief_cuda.extract_brief_words(s["pt0"][0], pts,
+                                       meta(_t(s["valid"])),
+                                       meta(torch.zeros((256, 4),
+                                                        dtype=torch.int32)))
 
 
 @pytest.mark.gpu
 def test_kernels_on_card(scene):
-    """On a CUDA card: K1 and K2 launch, count their launches, and agree
-    with their plain versions on the same device (chip_smoke.py runs the
-    same check at the main path's full shapes)."""
+    """On a CUDA card: K1, K2 and K4 launch, count their launches, and
+    agree with their plain versions on the same device (chip_smoke.py
+    runs the same check at the main path's full shapes)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     s = scene
@@ -252,6 +268,17 @@ def test_kernels_on_card(scene):
     assert float((p_k - p_p).abs().max()) <= FLOW_TOL
     assert float((e_k - e_p).abs().max()) <= ERR_TOL
     assert float((ncc_k - ncc_p).abs().max()) <= NCC_TOL
+    guess = (0.5 * (p_k - pts)).contiguous()
+    lvl = (prev[0], grads[0][0], grads[0][1], nxt[0], pts, guess, valid,
+           WIN, ITERS, EPS)
+    n4 = klt_cuda.track_level.launches
+    f_k, ok4_k, _ = klt_cuda.track_level(*lvl)
+    torch.cuda.synchronize()
+    assert klt_cuda.track_level.launches == n4 + 1
+    f_p, ok4_p, _ = klt_cuda.track_level_plain(*lvl)
+    assert torch.equal(ok4_k, ok4_p)
+    both = ok4_k & ok4_p
+    assert float((f_k - f_p)[both].abs().max()) <= FLOW_TOL
 
 
 def test_port_frontend_config_defaults_reach_the_kernel():

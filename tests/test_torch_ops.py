@@ -41,17 +41,27 @@ def _t(x, dtype=None):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Importing the port (and its main-path modules) imports no jax, no
-    vins_tpu module and no triton, and builds no kernel."""
+    """Importing the port (and its main-path and loop-closure modules)
+    imports no jax, no vins_tpu module and no triton, builds no kernel,
+    and loading the shipped vocabulary opens no file of the JAX
+    package."""
     code = (
-        "import sys\n"
+        "import os, sys\n"
+        "opened = []\n"
+        "sys.addaudithook(lambda ev, args: opened.append(str(args[0])) "
+        "if ev == 'open' else None)\n"
         "import vins_tpu_torch, vins_tpu_torch.pipeline, "
         "vins_tpu_torch.stream, vins_tpu_torch.ops.klt\n"
-        "from vins_tpu_torch.ops import native\n"
+        "import vins_tpu_torch.loop, vins_tpu_torch.loop.keyframe_db, "
+        "vins_tpu_torch.loop.pose_graph, vins_tpu_torch.loop.vocabulary\n"
+        "from vins_tpu_torch.ops import brief, brief_cuda, native\n"
+        "assert vins_tpu_torch.loop.default_vocabulary('cpu') is not None\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'vins_tpu', 'triton'))\n"
         "assert not bad, bad\n"
         "assert native._lib is None and not native.build_info\n"
+        "ref = os.sep + 'vins_tpu' + os.sep\n"
+        "assert not [p for p in opened if ref in p], opened\n"
         "print('clean')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,

@@ -102,9 +102,10 @@ def streams():
     # --- port ------------------------------------------------------------
     tseq = t_syn.make_synthetic_sequence(
         TCFG, n_frames=N_FRAMES, n_landmarks=60, seed=SEED,
-        frame_dt=1.0 / 30.0, traj_kwargs=TRAJ, imu_per_frame=2)
+        frame_dt=1.0 / 30.0, traj_kwargs=TRAJ, imu_per_frame=2,
+        device="cpu")
     sys_t = t_pipe.VinsSystem(
-        TCFG, ext=tseq.ext,
+        TCFG, ext=tseq.ext, device="cpu", use_loop=False,
         initializer=t_syn.ground_truth_initializer(tseq, TCFG))
     outs_t = sys_t.process_stream(
         torch.as_tensor(imgs), tseq.chunks, block=BLOCK,
@@ -160,7 +161,7 @@ def test_torch_render_matches_jax_noise_free():
         traj_kwargs=TRAJ, imu_per_frame=2)
     seq_t = t_syn.make_synthetic_sequence(
         TCFG, n_frames=3, n_landmarks=20, seed=1, frame_dt=0.1,
-        traj_kwargs=TRAJ, imu_per_frame=2)
+        traj_kwargs=TRAJ, imu_per_frame=2, device="cpu")
     for name in ("p", "q", "v", "ids", "obs", "obs_valid", "timestamps"):
         np.testing.assert_array_equal(getattr(seq_t, name).numpy(),
                                       np.asarray(getattr(seq_j, name)))
@@ -169,9 +170,11 @@ def test_torch_render_matches_jax_noise_free():
     img_j = np.asarray(j_syn.render_sequence_images(seq_j, CFG, seed=2,
                                                     noise_sigma=0.0))
     img_t = t_syn.render_sequence_images(seq_t, TCFG, seed=2,
-                                         noise_sigma=0.0).numpy()
+                                         noise_sigma=0.0,
+                                         device="cpu").numpy()
     np.testing.assert_allclose(img_t, img_j, atol=1e-4)
     # Noisy renders keep the [0, 1] range and the noise scale.
-    noisy = t_syn.render_sequence_images(seq_t, TCFG, seed=2).numpy()
+    noisy = t_syn.render_sequence_images(seq_t, TCFG, seed=2,
+                                         device="cpu").numpy()
     assert noisy.min() >= 0.0 and noisy.max() <= 1.0
     assert 0.002 < float(np.std(noisy - img_t)) < 0.008

@@ -1,11 +1,12 @@
 """vins_tpu_torch — the PyTorch/CUDA port of the vins_tpu VIO engine.
 
 The package mirrors vins_tpu/ module for module. Plain tensor math is
-PyTorch; the two Pallas kernels on the streaming main path (the fused
-pyramidal LK and the patch NCC, vins_tpu/ops/klt_pallas.py) are CUDA C++
-kernels in csrc/klt.cu, built with nvcc at first CUDA use (never at
-import). A CPU tensor takes each kernel's plain PyTorch version; a CUDA
-tensor launches the kernel or raises.
+PyTorch; the Pallas kernels of vins_tpu/ops/klt_pallas.py (the fused
+pyramidal LK and its one-level entry, the patch NCC, and the BRIEF patch
+read) are CUDA C++ kernels in csrc/klt.cu and csrc/brief.cu, built with
+nvcc at first CUDA use (never at import). A CPU tensor takes each
+kernel's plain PyTorch version; a CUDA tensor launches the kernel or
+raises. Entry points run on the first CUDA card unless given a device.
 
 Importing this package imports neither jax nor anything of vins_tpu.
 """

@@ -1,9 +1,15 @@
-// Pyramidal inverse-compositional LK (K1) and zero-mean patch NCC (K2)
-// for Hopper (sm_90a).
+// Pyramidal inverse-compositional LK (K1 and its one-level entry K4) and
+// zero-mean patch NCC (K2) for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of vins_tpu/ops/klt_pallas.py:
 //   K1 klt_pyramid_kernel  <- _klt_pyramid_kernel (klt_pallas.py:191),
 //                             called through track_pyramid_pallas (:302)
+//   K4 klt_pyramid_kernel at L = 1 (vins_klt_level)
+//                          <- _klt_kernel (klt_pallas.py:67), called
+//                             through track_level_pallas (:167): one level,
+//                             a per-slot guess in that level's pixels, and
+//                             the flow written out instead of pts + flow
+//                             ((pts + flow) - pts is not exact in fp32)
 //   K2 patch_ncc_kernel    <- _ncc_kernel (klt_pallas.py:368),
 //                             called through patch_ncc_pallas (:401)
 // Both share clamped_corner/read_patch, the port of _bilinear_patch
@@ -24,7 +30,9 @@
 // What bounds it on this card: at the main path's M = 128 slots the
 // launch is 128 warps on 132 SMs, each a chain of dependent bilinear
 // gathers (4 loads per tap) from the 12 pyramid planes (~6.5 MB of fp32
-// at 640x480, 3 levels). The planes stay in device memory and are read
+// at 640x480, 3 levels, of which the windows of the live slots touch
+// about 0.7 MB: the byte bound chip_smoke.py counts is 0.2 us). The
+// planes stay in device memory and are read
 // through the 50 MB L2 with __ldg; nothing is staged in shared memory.
 // The kernel is bound by gather latency, not by bytes or FLOPs; fusing
 // the forward pass, the backward pass and K2 into one launch is later
@@ -110,7 +118,10 @@ __device__ __forceinline__ void read_patch(const float* __restrict__ img,
   }
 }
 
-template <int WIN>
+// kFlowOut = false: K1, init_flow is a level-0 prior scaled down to the
+// coarsest level and pts_out = pts + flow. kFlowOut = true: K4, init_flow
+// is the guess in the (single) level's pixels and pts_out = flow.
+template <int WIN, bool kFlowOut>
 __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
 klt_pyramid_kernel(const float* __restrict__ pts,
                    const float* __restrict__ init_flow,
@@ -129,7 +140,7 @@ klt_pyramid_kernel(const float* __restrict__ pts,
   float flx = 0.0f;
   float fly = 0.0f;
   if (init_flow != nullptr) {
-    const float coarse = (float)(1 << (L - 1));
+    const float coarse = kFlowOut ? 1.0f : (float)(1 << (L - 1));
     flx = init_flow[2 * slot] / coarse;
     fly = init_flow[2 * slot + 1] / coarse;
   }
@@ -204,8 +215,8 @@ klt_pyramid_kernel(const float* __restrict__ pts,
     }
   }
   if (lane == 0) {
-    pts_out[2 * slot] = px + flx;
-    pts_out[2 * slot + 1] = py + fly;
+    pts_out[2 * slot] = kFlowOut ? flx : px + flx;
+    pts_out[2 * slot + 1] = kFlowOut ? fly : py + fly;
     ok_out[slot] = ok && alive;
     err_out[slot] = err;
   }
@@ -301,8 +312,40 @@ int vins_klt_pyramid(const void* pts, const void* init_flow,
   float* eo = static_cast<float*>(err_out);
   switch (win) {
     case 21:  // FrontendConfig.klt_window, the only window in use
-      klt_pyramid_kernel<21><<<grid_for(M), block, 0, s>>>(
+      klt_pyramid_kernel<21, false><<<grid_for(M), block, 0, s>>>(
           p, g, v, pyr, L, M, iters, eps2, po, oo, eo);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// K4: one level. prev, gx, gy, next: [H, W] f32; pts, guess (may be
+// null): [M, 2] f32 in this level's pixels; valid: [M] bool. Outputs:
+// flow_out [M, 2] f32, ok_out [M] bool (gate & valid), err_out [M] f32.
+int vins_klt_level(const void* prev, const void* gx, const void* gy,
+                   const void* next, int H, int W, const void* pts,
+                   const void* guess, const void* valid, int M, int win,
+                   int iters, float eps2, void* flow_out, void* ok_out,
+                   void* err_out, void* stream) {
+  if (M <= 0) return 0;
+  Pyramid pyr;
+  pyr.prev[0] = static_cast<const float*>(prev);
+  pyr.gx[0] = static_cast<const float*>(gx);
+  pyr.gy[0] = static_cast<const float*>(gy);
+  pyr.next[0] = static_cast<const float*>(next);
+  pyr.H[0] = H;
+  pyr.W[0] = W;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 block(kWarp * kWarpsPerBlock);
+  switch (win) {
+    case 21:
+      klt_pyramid_kernel<21, true><<<grid_for(M), block, 0, s>>>(
+          static_cast<const float*>(pts), static_cast<const float*>(guess),
+          static_cast<const bool*>(valid), pyr, 1, M, iters, eps2,
+          static_cast<float*>(flow_out), static_cast<bool*>(ok_out),
+          static_cast<float*>(err_out));
       break;
     default:
       return (int)cudaErrorInvalidValue;

@@ -12,6 +12,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from .. import device as device_mod
 from ..config import VinsConfig
 from ..ops import corners as corners_mod
 from ..ops import image as image_mod
@@ -180,11 +181,12 @@ def track_step_pre(state: TrackerState, pyr, grads, cfg: VinsConfig,
 
 
 class FeatureTracker:
-    """Host shell holding the tracker state."""
+    """Host shell holding the tracker state; device=None means the first
+    CUDA card."""
 
-    def __init__(self, cfg: VinsConfig, seed: int = 0, device="cpu"):
+    def __init__(self, cfg: VinsConfig, seed: int = 0, device=None):
         self.cfg = cfg
-        self.state = fresh_state(cfg, seed, device)
+        self.state = fresh_state(cfg, seed, device_mod.resolve(device))
         self.started = False
 
     def process(self, img: torch.Tensor, do_topup: bool = True,

@@ -8,6 +8,10 @@ JAX (e.g. with jax.device_get, on the caller's side — this module never
 sees JAX) maps onto a port type by field name. Port-only fields without a
 JAX counterpart (TrackerState.gen, the torch.Generator standing in for
 the JAX PRNG key) are taken from `like`.
+
+Packed BRIEF words are uint32 in the JAX package and int32 bit patterns in
+the port (PyTorch has no shifts on uint32): they cross as bit patterns,
+with a view, never by value.
 """
 from __future__ import annotations
 
@@ -27,7 +31,10 @@ def to_torch(tree: Any, like: Any, device=None) -> Any:
     if isinstance(like, torch.Tensor):
         dev = like.device if device is None else device
         # np.array copies: arrays fetched from JAX are read-only.
-        return torch.as_tensor(np.array(tree), device=dev).to(like.dtype)
+        arr = np.array(tree)
+        if arr.dtype == np.uint32 and like.dtype == torch.int32:
+            arr = arr.view(np.int32)
+        return torch.as_tensor(arr, device=dev).to(like.dtype)
     if isinstance(like, torch.Generator) or like is None:
         return like
     if isinstance(like, bool):
@@ -48,15 +55,22 @@ def to_torch(tree: Any, like: Any, device=None) -> Any:
     raise TypeError(f"to_torch: unsupported template {type(like)}")
 
 
-def to_numpy(tree: Any) -> Any:
+def to_numpy(tree: Any, like: Any = None) -> Any:
     """The port tree with every tensor as a host numpy array (generators
-    dropped to None)."""
+    dropped to None). like: an optional JAX-side tree of the same
+    structure; an int32 tensor whose counterpart there is uint32 comes
+    back as uint32 words, bit for bit."""
     if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu().numpy()
+        arr = tree.detach().cpu().numpy()
+        if (arr.dtype == np.int32 and like is not None
+                and np.dtype(getattr(like, "dtype", None)) == np.uint32):
+            arr = arr.view(np.uint32)
+        return arr
     if isinstance(tree, torch.Generator):
         return None
-    if _is_namedtuple(tree):
-        return type(tree)(*[to_numpy(x) for x in tree])
     if isinstance(tree, (tuple, list)):
-        return type(tree)(to_numpy(x) for x in tree)
+        subs = like if like is not None else [None] * len(tree)
+        vals = [to_numpy(x, s) for x, s in zip(tree, subs)]
+        return type(tree)(*vals) if _is_namedtuple(tree) else type(tree)(
+            vals)
     return tree

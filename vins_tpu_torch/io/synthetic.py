@@ -2,7 +2,7 @@
 vins_tpu/io/synthetic.py): the closed-form circle trajectory, the
 per-frame sequence generator, the ray-cast textured-cylinder renderer,
 and a ground-truth initializer that stands in for
-core/initialization.py until that module is ported (ROADMAP item 17).
+core/initialization.py until that module is ported (ROADMAP item 18).
 
 The sequence and texture come from numpy with a seed, exactly as in the
 JAX module; the renderer runs in PyTorch on any device and draws its
@@ -16,6 +16,7 @@ from typing import List, NamedTuple
 import numpy as np
 import torch
 
+from .. import device as device_mod
 from ..config import VinsConfig
 from ..core import feature_manager as fm
 from ..core.factors import Extrinsics
@@ -62,9 +63,11 @@ def make_synthetic_sequence(cfg: VinsConfig, n_frames: int = 60,
                             noise_px: float = 0.0, frame_dt: float = 0.1,
                             t0: float = 0.0, traj_kwargs: dict | None = None,
                             imu_per_frame: int | None = None,
-                            device="cpu") -> SyntheticSequence:
+                            device=None) -> SyntheticSequence:
     """Per-frame IMU chunks and landmark observations around the circle,
-    with the same numpy draws as the JAX generator for the same seed."""
+    with the same numpy draws as the JAX generator for the same seed.
+    device=None means the first CUDA card."""
+    device = device_mod.resolve(device)
     tk = traj_kwargs or {}
     traj = lambda t: _traj(t, **tk)
     rng = np.random.default_rng(seed)
@@ -144,12 +147,13 @@ def render_camera_frames(p_cam, R_wc, cfg: VinsConfig, seed: int = 0,
                          wall_radius: float = 8.0, floor_z: float = -2.0,
                          ceil_z: float = 2.0, noise_sigma: float = 0.005,
                          tex_gain: float = 1.0, tex_freq_max: float = 25.0,
-                         device="cpu", frames_per_pass: int = 8
+                         device=None, frames_per_pass: int = 8
                          ) -> torch.Tensor:
     """Ray-cast [N, H, W] frames of the textured cylinder room from camera
     centers p_cam [N, 3] and camera-to-world rotations R_wc [N, 3, 3].
     The texture basis is the JAX renderer's (same numpy stream); the
-    noise comes from a torch.Generator seeded with `seed`."""
+    noise comes from a torch.Generator seeded with `seed`. device=None
+    means the first CUDA card."""
     H, W = cfg.camera.height, cfg.camera.width
     tex_rng = np.random.default_rng(seed + 77)
     n_waves = 96
@@ -160,7 +164,7 @@ def render_camera_frames(p_cam, R_wc, cfg: VinsConfig, seed: int = 0,
     amps = (amps / amps.sum() * tex_gain).astype(np.float32)
     phases = tex_rng.uniform(0, 2 * np.pi, n_waves).astype(np.float32)
 
-    dev = torch.device(device)
+    dev = device_mod.resolve(device)
     f32 = torch.float32
     dirs_c = torch.as_tensor(camera_ray_grid(cfg), dtype=f32, device=dev)
     freqs_t = torch.as_tensor(freqs, device=dev)
@@ -204,8 +208,9 @@ def render_sequence_images(seq: SyntheticSequence, cfg: VinsConfig,
                            seed: int = 0, wall_radius: float = 8.0,
                            floor_z: float = -2.0, ceil_z: float = 2.0,
                            noise_sigma: float = 0.005,
-                           device="cpu") -> torch.Tensor:
-    """[N, H, W] float32 frames rendered along the sequence's trajectory."""
+                           device=None) -> torch.Tensor:
+    """[N, H, W] float32 frames rendered along the sequence's trajectory
+    (device=None: the first CUDA card)."""
     R_ic = lie.np_quat_to_rotmat(seq.ext.qic.cpu().numpy())
     t_ic = seq.ext.tic.cpu().numpy()
     Rwb = lie.np_quat_to_rotmat(seq.q.cpu().numpy())

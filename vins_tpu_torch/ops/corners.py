@@ -1,11 +1,12 @@
-"""Shi–Tomasi response and spacing-aware corner selection (port of
-vins_tpu/ops/corners.py: shi_tomasi_response, select_corners_grid,
-occupancy_cells)."""
+"""Shi–Tomasi response, spacing-aware corner selection and the FAST score
+(port of vins_tpu/ops/corners.py: shi_tomasi_response,
+select_corners_grid, occupancy_cells, fast_score)."""
 from __future__ import annotations
 
 from typing import NamedTuple, Tuple
 
 import torch
+import torch.nn.functional as nnf
 
 from .image import _sep_filter, sobel_gradients
 
@@ -87,3 +88,33 @@ def occupancy_cells(shape: Tuple[int, int], pts: torch.Tensor,
           + (cy[:, None, None] - pts[None, None, :, 1]) ** 2)
     r = cell
     return torch.any((d2 < r * r) & valid[None, None, :], dim=-1)
+
+
+# Bresenham-16 circle of FAST, (dx, dy) in ring order.
+_FAST_RING = ((0, -3), (1, -3), (2, -2), (3, -1), (3, 0), (3, 1), (2, 2),
+              (1, 3), (0, 3), (-1, 3), (-2, 2), (-3, 1), (-3, 0), (-3, -1),
+              (-2, -2), (-1, -3))
+
+
+def fast_score(img: torch.Tensor, threshold: float = 0.04) -> torch.Tensor:
+    """FAST-9 response for the loop-closure keypoints: a pixel is a corner
+    if >= 9 contiguous ring neighbours (edge-padded) are all brighter than
+    centre + t or all darker than centre - t; its score is the sum of
+    |ring - centre| over the 16 neighbours, 0 elsewhere."""
+    H, W = img.shape
+    pad = 3
+    imp = nnf.pad(img[None, None], (pad, pad, pad, pad),
+                  mode="replicate")[0, 0]
+    ring = torch.stack([imp[pad + dy:pad + dy + H, pad + dx:pad + dx + W]
+                        for dx, dy in _FAST_RING])
+    bright = ring > img[None] + threshold
+    dark = ring < img[None] - threshold
+
+    def arc9(flags):
+        doubled = torch.cat([flags, flags[:9]], 0)
+        return torch.stack([torch.all(doubled[s:s + 9], 0)
+                            for s in range(16)]).any(0)
+
+    is_corner = arc9(bright) | arc9(dark)
+    score = torch.sum(torch.abs(ring - img[None]), 0)
+    return torch.where(is_corner, score, 0.0)

@@ -1,12 +1,13 @@
-"""Kernels K1 (pyramidal LK) and K2 (patch NCC): CUDA wrappers and their
-plain PyTorch versions.
+"""Kernels K1 (pyramidal LK), K4 (one LK level) and K2 (patch NCC): CUDA
+wrappers and their plain PyTorch versions.
 
 K1 replaces `_klt_pyramid_kernel` / `track_pyramid_pallas`
-(vins_tpu/ops/klt_pallas.py:191-326) and K2 replaces `_ncc_kernel` /
-`patch_ncc_pallas` (klt_pallas.py:368-411); the CUDA sources are in
-vins_tpu_torch/csrc/klt.cu. Dispatch is on the tensor's device: a CPU
-tensor takes the plain version, a CUDA tensor launches the kernel or
-raises. Nothing falls back.
+(vins_tpu/ops/klt_pallas.py:191-326), K4 replaces `_klt_kernel` /
+`track_level_pallas` (klt_pallas.py:67-188) as K1's kernel at L = 1, and
+K2 replaces `_ncc_kernel` / `patch_ncc_pallas` (klt_pallas.py:368-411);
+the CUDA sources are in vins_tpu_torch/csrc/klt.cu. Dispatch is on the
+tensor's device: a CPU tensor takes the plain version, a CUDA tensor
+launches the kernel or raises. Nothing falls back.
 
 The plain versions implement the KERNEL's semantics, not those of the
 JAX package's XLA path (vins_tpu/ops/klt._track_level, which always runs
@@ -16,8 +17,8 @@ slots skipping every level's loop, and the min-eigenvalue gate applied to
 batched loop over `iters` in which a slot freezes once it stops.
 
 Each CUDA wrapper counts its launches in a plain integer attribute
-(`track_pyramid.launches`, `patch_ncc.launches`), incremented only where
-the kernel is launched.
+(`track_pyramid.launches`, `track_level.launches`, `patch_ncc.launches`),
+incremented only where the kernel is launched.
 """
 from __future__ import annotations
 
@@ -62,9 +63,10 @@ def _pyramid_flow_plain(pyr_prev: Sequence[torch.Tensor],
                         pyr_next: Sequence[torch.Tensor],
                         pts_prev: torch.Tensor, valid: torch.Tensor,
                         win: int, iters: int, eps: float,
-                        guess: torch.Tensor):
+                        guess: torch.Tensor, iters_run: Optional[list] = None):
     """(flow [M,2], ok [M], err [M]) of _klt_pyramid_kernel, starting at
-    the coarsest level with `guess` (that level's pixels)."""
+    the coarsest level with `guess` (that level's pixels). iters_run: if a
+    list, the [M] count of updates each slot ran is appended per level."""
     L = len(pyr_prev)
     r = (win - 1) / 2.0
     area = float(win * win)
@@ -94,8 +96,10 @@ def _pyramid_flow_plain(pyr_prev: Sequence[torch.Tensor],
 
         d2 = torch.where(alive, inf, torch.zeros_like(px))
         err_l = torch.zeros_like(px)
+        n_run = torch.zeros_like(px, dtype=torch.int32)
         for _ in range(iters):
             run = d2 > eps2
+            n_run += run
             cur = _patches(pyr_next[lvl], plx + flx - r, ply + fly - r, win)
             diff = cur - t
             rx = torch.sum(diff * tx, -1)
@@ -107,6 +111,8 @@ def _pyramid_flow_plain(pyr_prev: Sequence[torch.Tensor],
             err_l = torch.where(run, torch.sum(torch.abs(diff), -1) / area,
                                 err_l)
             d2 = torch.where(run, dx * dx + dy * dy, d2)
+        if iters_run is not None:
+            iters_run.append(n_run)
         err = err_l
         if lvl > 0:
             flx, fly = flx * 2.0, fly * 2.0
@@ -121,21 +127,25 @@ def _coarse_guess(pts_prev, init_flow, L):
 
 def track_pyramid_plain(pyr_prev, grads, pyr_next, pts_prev, valid,
                         win: int, iters: int, eps: float = 0.0,
-                        init_flow: Optional[torch.Tensor] = None):
-    """Plain version of K1: (pts_prev + flow, ok & valid, err)."""
+                        init_flow: Optional[torch.Tensor] = None,
+                        iters_run: Optional[list] = None):
+    """Plain version of K1: (pts_prev + flow, ok & valid, err). iters_run:
+    if a list, receives each level's [M] count of LK updates run."""
     flow, ok, err = _pyramid_flow_plain(
         pyr_prev, grads, pyr_next, pts_prev, valid, win, iters, eps,
-        _coarse_guess(pts_prev, init_flow, len(pyr_prev)))
+        _coarse_guess(pts_prev, init_flow, len(pyr_prev)), iters_run)
     return pts_prev + flow, ok & valid, err
 
 
 def track_level_plain(img_prev, gx, gy, img_next, pts_prev, guess, valid,
-                      win: int, iters: int, eps: float = 0.0):
-    """One level with an arbitrary per-slot guess — the semantics of K4
+                      win: int, iters: int, eps: float = 0.0,
+                      iters_run: Optional[list] = None):
+    """Plain version of K4: one level with an arbitrary per-slot guess
     (`track_level_pallas`, klt_pallas.py:67-188), which is K1 at L = 1.
     Returns (flow, ok, err)."""
     return _pyramid_flow_plain([img_prev], [(gx, gy)], [img_next],
-                               pts_prev, valid, win, iters, eps, guess)
+                               pts_prev, valid, win, iters, eps, guess,
+                               iters_run)
 
 
 def patch_ncc_plain(img_a: torch.Tensor, img_b: torch.Tensor,
@@ -224,6 +234,34 @@ def _track_pyramid_cuda(pyr_prev, grads, pyr_next, pts_prev, valid,
     return pts_out, ok_out, err_out
 
 
+def _track_level_cuda(img_prev, gx, gy, img_next, pts_prev, guess, valid,
+                      win, iters, eps):
+    dev = pts_prev.device
+    M = pts_prev.shape[0]
+    H, W = img_prev.shape
+    f32 = torch.float32
+    _check_win(win)
+    if H < win + 2 or W < win + 2:
+        raise ValueError(f"level ({H}x{W}) is smaller than the {win}x{win} "
+                         "window plus its bilinear border")
+    for name, x in (("img_prev", img_prev), ("gx", gx), ("gy", gy),
+                    ("img_next", img_next)):
+        _check_tensor(name, x, (H, W), f32, dev)
+    _check_tensor("pts_prev", pts_prev, (M, 2), f32, dev)
+    _check_tensor("guess", guess, (M, 2), f32, dev)
+    _check_tensor("valid", valid, (M,), torch.bool, dev)
+    flow = torch.empty((M, 2), dtype=f32, device=dev)
+    ok = torch.empty((M,), dtype=torch.bool, device=dev)
+    err = torch.empty((M,), dtype=f32, device=dev)
+    status = native.library().vins_klt_level(
+        img_prev.data_ptr(), gx.data_ptr(), gy.data_ptr(),
+        img_next.data_ptr(), H, W, pts_prev.data_ptr(), guess.data_ptr(),
+        valid.data_ptr(), M, win, iters, eps * eps, flow.data_ptr(),
+        ok.data_ptr(), err.data_ptr(), _stream_ptr(dev))
+    native.check(status, "vins_klt_level")
+    return flow, ok, err
+
+
 def _patch_ncc_cuda(img_a, img_b, pts_a, pts_b, win):
     dev = pts_a.device
     M = pts_a.shape[0]
@@ -267,6 +305,25 @@ def track_pyramid(pyr_prev: List[torch.Tensor], grads, pyr_next,
                                win, iters, eps, init_flow)
 
 
+def track_level(img_prev: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor,
+                img_next: torch.Tensor, pts_prev: torch.Tensor,
+                guess: torch.Tensor, valid: torch.Tensor, win: int,
+                iters: int, eps: float = 0.0):
+    """K4: one LK level for [M, 2] points with a per-slot guess (both in
+    this level's pixels). Returns (flow, ok & valid, err) as
+    track_level_pallas."""
+    if pts_prev.is_cuda:
+        out = _track_level_cuda(img_prev, gx, gy, img_next, pts_prev, guess,
+                                valid, win, iters, eps)
+        track_level.launches += 1
+        return out
+    if pts_prev.device.type != "cpu":
+        raise ValueError(f"track_level: unsupported device "
+                         f"{pts_prev.device}")
+    return track_level_plain(img_prev, gx, gy, img_next, pts_prev, guess,
+                             valid, win, iters, eps)
+
+
 def patch_ncc(img_a: torch.Tensor, img_b: torch.Tensor,
               pts_a: torch.Tensor, pts_b: torch.Tensor,
               win: int) -> torch.Tensor:
@@ -281,9 +338,11 @@ def patch_ncc(img_a: torch.Tensor, img_b: torch.Tensor,
 
 
 track_pyramid.launches = 0
+track_level.launches = 0
 patch_ncc.launches = 0
 
 
 def reset_launch_counts() -> None:
     track_pyramid.launches = 0
+    track_level.launches = 0
     patch_ncc.launches = 0

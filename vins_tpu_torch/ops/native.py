@@ -3,10 +3,11 @@
 The library is compiled with nvcc for sm_90a into
 vins_tpu_torch/_build/libvins_kernels.so at first CUDA use — never at
 import — from the sources in this checkout only, and rebuilt whenever a
-source is newer than the library. It has a plain C interface and is
-bound with ctypes (the same pattern as native/Makefile with
-vins_tpu/io/native_loader.py), so the build needs nvcc alone: no ninja,
-no PyTorch headers.
+source is newer than the library. Every source compiles in its own nvcc
+process, all started together, and one link step joins the objects. It
+has a plain C interface and is bound with ctypes (the same pattern as
+native/Makefile with vins_tpu/io/native_loader.py), so the build needs
+nvcc alone: no ninja, no PyTorch headers.
 """
 from __future__ import annotations
 
@@ -22,8 +23,9 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libvins_kernels.so")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-Xptxas", "-v"]
 
 _VP = ctypes.c_void_p
 _ARGTYPES = {
@@ -35,6 +37,14 @@ _ARGTYPES = {
     # img_a, img_b, H, W, pts_a, pts_b, M, win, out, stream
     "vins_patch_ncc": [_VP, _VP, ctypes.c_int, ctypes.c_int, _VP, _VP,
                        ctypes.c_int, ctypes.c_int, _VP, _VP],
+    # prev, gx, gy, next, H, W, pts, guess, valid, M, win, iters, eps2,
+    # flow_out, ok_out, err_out, stream
+    "vins_klt_level": [_VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int, _VP,
+                       _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_float, _VP, _VP, _VP, _VP],
+    # img, H, W, pts, valid, pattern, N, words, stream
+    "vins_brief_words": [_VP, ctypes.c_int, ctypes.c_int, _VP, _VP, _VP,
+                         ctypes.c_int, _VP, _VP],
 }
 
 _lock = threading.Lock()
@@ -65,23 +75,42 @@ def _stale() -> bool:
     return any(os.path.getmtime(s) > built for s in _sources())
 
 
+def _run_all(cmds) -> list:
+    """Run the commands in parallel; raise with the compiler's report on
+    the first failure. Returns each command's stderr."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for c, p, (_, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError("nvcc failed (exit %d):\n%s\n%s" % (
+                p.returncode, " ".join(c), err[-8000:]))
+    return [err for _, err in outs]
+
+
 def build() -> dict:
-    """Compile csrc/*.cu into LIB_PATH if it is missing or stale.
-    Returns {"seconds": ..., "rebuilt": bool, "ptxas": compiler report}."""
+    """Compile csrc/*.cu into LIB_PATH if it is missing or stale: one nvcc
+    per source, in parallel, then one link. Returns {"seconds": ...,
+    "rebuilt": bool, "ptxas": compiler report}."""
     if not _stale():
         return {"seconds": 0.0, "rebuilt": False, "ptxas": ""}
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.tmp{os.getpid()}"
+    tag = f"tmp{os.getpid()}"
     cu = [s for s in _sources() if s.endswith(".cu")]
-    cmd = [_nvcc()] + NVCC_FLAGS + ["-o", tmp] + cu
+    objs = [os.path.join(BUILD_DIR, os.path.basename(s)[:-3] + f".{tag}.o")
+            for s in cu]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError("nvcc failed (exit %d):\n%s\n%s" % (
-            proc.returncode, " ".join(cmd), proc.stderr[-8000:]))
+    reports = _run_all([[nvcc] + NVCC_FLAGS + ["-c", "-o", o, s]
+                        for s, o in zip(cu, objs)])
+    tmp = f"{LIB_PATH}.{tag}"
+    _run_all([[nvcc] + ARCH_FLAGS + ["-shared", "-o", tmp] + objs])
     os.replace(tmp, LIB_PATH)
+    for o in objs:
+        os.remove(o)
     return {"seconds": time.perf_counter() - t0, "rebuilt": True,
-            "ptxas": proc.stderr}
+            "ptxas": "\n".join(reports)}
 
 
 def library() -> ctypes.CDLL:

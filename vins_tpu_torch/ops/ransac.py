@@ -1,5 +1,5 @@
-"""Batched fixed-hypothesis 8-point F-RANSAC (port of
-vins_tpu/ops/ransac.ransac_fundamental).
+"""Batched fixed-hypothesis 8-point F-RANSAC and Gauss–Newton PnP (port
+of vins_tpu/ops/ransac.ransac_fundamental and pnp_gn).
 
 The reference samples each hypothesis's minimal set by Gumbel-top-k over
 the valid points with jax.random, whose bits torch cannot reproduce, so
@@ -11,6 +11,8 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+
+from ..utils import lie
 
 
 def _normalize_points(pts: torch.Tensor, valid: torch.Tensor):
@@ -103,3 +105,37 @@ def ransac_fundamental(p1: torch.Tensor, p2: torch.Tensor,
     S = torch.cat([S[:2], torch.zeros_like(S[2:])])
     return RansacResult(model=U @ torch.diag(S) @ Vh, inliers=pick(inl),
                         n_inliers=pick(counts))
+
+
+def pnp_gn(points_w: torch.Tensor, obs: torch.Tensor, valid: torch.Tensor,
+           p0: torch.Tensor, q0: torch.Tensor, iters: int = 10):
+    """Gauss–Newton PnP: refine the world-from-camera pose (p, q) from
+    fixed world points [N, 3] and normalized observations [N, 2]; a step
+    is kept only if it lowers the squared residual. Returns (p, q,
+    mean_sq_residual). The 2N x 6 Jacobian is forward-mode autodiff at
+    the tangent origin, as jax.jacfwd takes it."""
+    w = valid.to(points_w.dtype)
+
+    def residual(p, q):
+        pc = lie.quat_rotate(lie.quat_conj(q), points_w - p)
+        z = torch.where(torch.abs(pc[:, 2:3]) < 1e-6,
+                        torch.full_like(pc[:, 2:3], 1e-6), pc[:, 2:3])
+        return (pc[:, :2] / z - obs) * w[:, None]
+
+    z6 = torch.zeros(6, dtype=points_w.dtype, device=points_w.device)
+    eye = 1e-6 * torch.eye(6, dtype=points_w.dtype, device=points_w.device)
+    p, q = p0, q0
+    for _ in range(iters):
+        def res_local(d, p=p, q=q):
+            return residual(*lie.pose_retract(p, q, d)).reshape(-1)
+
+        r = res_local(z6)
+        J = torch.func.jacfwd(res_local)(z6)
+        H = J.T @ J + eye
+        d = -torch.linalg.solve_ex(H, J.T @ r)[0]
+        pp, qq = lie.pose_retract(p, q, d)
+        better = torch.sum(r ** 2) >= torch.sum(residual(pp, qq) ** 2)
+        p = torch.where(better, pp, p)
+        q = torch.where(better, qq, q)
+    msr = torch.sum(residual(p, q) ** 2) / torch.clamp(torch.sum(w), min=1.0)
+    return p, q, msr

@@ -1,14 +1,24 @@
-"""Full-system orchestration without loop closure (port of the
-use_loop=False subset of vins_tpu/pipeline.VinsSystem).
+"""Full-system orchestration (port of vins_tpu/pipeline.VinsSystem: the
+bootstrap and the streaming block path, with or without loop closure).
 
 INITIAL: interactive frames through the tracker; every freq-th frame
 joins the boot window, and once it holds F frames the `initializer`
 bootstraps the backend (the port of core/initialization.py is still to
-come — ROADMAP item 17 — so the caller supplies it, e.g.
-io.synthetic.ground_truth_initializer). NON_LINEAR: blocks of frames
-through stream.run_vio_scan; an in-block failure re-enters INITIAL and
-the tail of the stream is reprocessed. With no loop closure the drift
-correction is the identity, so published poses are the raw VIO poses.
+come, so the caller supplies it, e.g. io.synthetic.ground_truth_
+initializer). NON_LINEAR: blocks of frames through stream.run_vio_scan;
+an in-block failure re-enters INITIAL (a new loop-DB segment) and the
+tail of the stream is reprocessed.
+
+Loop closure (use_loop=True, the default, as in the JAX package) runs
+between blocks, one block in flight (the JAX pipeline's depth=1 order):
+sync_block fetches the block's packed rows together with the previous
+block's detection scores, verify results and the drift in one copy, runs
+the loop-edge lifecycle of the constraint that rode the block, finishes
+verification and stages the newest verified hit as a ride-time anchor
+for the next block; insert_block_keyframes gates and verifies, runs a
+deferred pose graph, inserts every loop_freq-th keyframe into the DB and
+dispatches the new rows' scores; publish_block applies the pose-graph
+drift to poses and point clouds.
 """
 from __future__ import annotations
 
@@ -19,6 +29,7 @@ from typing import Callable, List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from . import device as device_mod
 from .config import VinsConfig
 from .core import feature_manager as fm
 from .core import marginalization as marg
@@ -28,6 +39,7 @@ from .core.estimator import BackendState, LoopInput
 from .core.factors import Extrinsics
 from .core.state import FeatureTable, WindowState
 from .frontend.tracker import FeatureTracker
+from .loop.keyframe_db import LoopCloser, _fetch, _fill
 from .utils import lie
 from . import stream as stream_mod
 
@@ -41,14 +53,14 @@ Initializer = Callable[[FeatureTable, pre_mod.ImuChunk, List[int]],
 
 class PipelineOutput(NamedTuple):
     t: float
-    p: np.ndarray            # [3] published position
+    p: np.ndarray            # [3] drift-corrected position
     q: np.ndarray            # [4]
-    p_raw: np.ndarray        # [3] raw VIO position (equal to p here)
+    p_raw: np.ndarray        # [3] raw VIO position
     is_keyframe: bool
     initialized: bool
     n_tracked: int
     solver_cost: float
-    loop_hit: Optional[int]  # always None without loop closure
+    loop_hit: Optional[int]  # matched old keyframe row, if any
     point_cloud: Optional[np.ndarray] = None   # [M, 3] at backend frames
     point_valid: Optional[np.ndarray] = None   # [M]
     status: str = ""
@@ -63,6 +75,65 @@ class _BootFrame:
     frame: int               # stream index, for the initializer
 
 
+def _np_quat_to_rotmat(q: np.ndarray) -> np.ndarray:
+    """Host quaternion (w, x, y, z) -> rotation matrix, as the JAX
+    pipeline's drift correction computes it."""
+    w, x, y, z = [float(v) for v in q]
+    return np.array([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+    ], np.float32)
+
+
+def _np_yaw(q: np.ndarray) -> float:
+    R = _np_quat_to_rotmat(q)
+    return float(np.arctan2(R[1, 0], R[0, 0]))
+
+
+def _np_rotmat_to_quat(R: np.ndarray) -> np.ndarray:
+    """Host rotation matrix -> quaternion (w, x, y, z), Shepperd's method
+    with the JAX pipeline's branch order."""
+    t = float(np.trace(R))
+    if t > 0:
+        s = np.sqrt(t + 1.0) * 2
+        w = 0.25 * s
+        x = (R[2, 1] - R[1, 2]) / s
+        y = (R[0, 2] - R[2, 0]) / s
+        z = (R[1, 0] - R[0, 1]) / s
+    else:
+        i = int(np.argmax(np.diag(R)))
+        j, k = (i + 1) % 3, (i + 2) % 3
+        s = np.sqrt(max(R[i, i] - R[j, j] - R[k, k] + 1.0, 1e-12)) * 2
+        v = np.zeros(3)
+        v[i] = 0.25 * s
+        v[j] = (R[j, i] + R[i, j]) / s
+        v[k] = (R[k, i] + R[i, k]) / s
+        w = (R[k, j] - R[j, k]) / s
+        x, y, z = v
+    q = np.array([w, x, y, z], np.float32)
+    return q / np.linalg.norm(q)
+
+
+def _fetch_flat(tensors: List[torch.Tensor]) -> List[np.ndarray]:
+    """Several device tensors to host numpy arrays in ONE device-to-host
+    copy (one stream synchronization): each is flattened to float32 —
+    exact for the bool, float16, float32 and small-integer leaves this
+    path fetches — concatenated, copied, split and cast back."""
+    if not tensors:
+        return []
+    flat = torch.cat([t.reshape(-1).to(torch.float32) for t in tensors])
+    host = flat.cpu().numpy()
+    out, o = [], 0
+    for t in tensors:
+        n = t.numel()
+        dt = {torch.bool: np.bool_, torch.float16: np.float16,
+              torch.int32: np.int32}.get(t.dtype, np.float32)
+        out.append(host[o:o + n].reshape(tuple(t.shape)).astype(dt))
+        o += n
+    return out
+
+
 def _reanchor_window(window: WindowState, p_anchor: torch.Tensor,
                      yaw_anchor: torch.Tensor) -> WindowState:
     """Rigidly move a window so frame 0 sits at p_anchor with yaw_anchor."""
@@ -75,40 +146,51 @@ def _reanchor_window(window: WindowState, p_anchor: torch.Tensor,
                            v=window.v @ R_fix.T)
 
 
-def default_extrinsics(cfg: VinsConfig, device="cpu") -> Extrinsics:
+def default_extrinsics(cfg: VinsConfig, device=None) -> Extrinsics:
+    """The camera config's extrinsics (device=None: the first CUDA card)."""
     cam = cfg.camera
+    dev = device_mod.resolve(device)
     return Extrinsics(
-        tic=torch.tensor(cam.tic, dtype=torch.float32, device=device),
-        qic=lie.rotmat_to_quat(torch.tensor(cam.ric_matrix(),
-                                            device=device)))
+        tic=torch.tensor(cam.tic, dtype=torch.float32, device=dev),
+        qic=lie.rotmat_to_quat(torch.tensor(cam.ric_matrix(), device=dev)))
 
 
 class VinsSystem:
-    """End-to-end VIO on one device, loop closure off."""
+    """End-to-end VIO/SLAM on one device; device=None means the first
+    CUDA card (a RuntimeError without one)."""
 
     def __init__(self, cfg: VinsConfig, seed: int = 0, use_pnp: bool = True,
-                 use_loop: bool = False, ext: Optional[Extrinsics] = None,
-                 device="cpu", initializer: Optional[Initializer] = None):
-        if use_loop:
-            raise NotImplementedError(
-                "loop closure is not ported yet (ROADMAP items 18-20); "
-                "construct VinsSystem with use_loop=False")
+                 use_loop: bool = True, ext: Optional[Extrinsics] = None,
+                 device=None, initializer: Optional[Initializer] = None):
         self.cfg = cfg
-        self.device = torch.device(device)
-        self.ext = ext if ext is not None else default_extrinsics(
-            cfg, self.device)
-        self.gravity = torch.tensor([0.0, 0.0, cfg.imu.gravity],
-                                    device=self.device)
+        self.device = device_mod.resolve(device)
+        dev = self.device
+        self.ext = (Extrinsics(*(x.to(dev) for x in ext)) if ext is not None
+                    else default_extrinsics(cfg, dev))
+        self.gravity = torch.tensor([0.0, 0.0, cfg.imu.gravity], device=dev)
         self.initializer = initializer
-        self.tracker = FeatureTracker(cfg, seed, self.device)
+        self.tracker = FeatureTracker(cfg, seed, dev)
         self.use_pnp = use_pnp
-        self.use_loop = False
-        self.loop = None
+        self.use_loop = use_loop and cfg.loop.enabled
+        self.loop = (LoopCloser(cfg, seed, ext=(self.ext.tic, self.ext.qic),
+                                device=dev) if self.use_loop else None)
         self.solver_budget = cfg.solver.max_iters
         self._loop_inactive = LoopInput.inactive(cfg.window.max_landmarks,
-                                                 device=self.device)
-        self.timings = {"dispatch": 0.0, "sync": 0.0, "publish": 0.0,
-                        "blocks": 0, "host_syncs": 0}
+                                                 device=dev)
+        self._anchor_inactive = stream_mod.LoopAnchor.inactive(
+            cfg.loop.max_kf_features, device=dev)
+        self._stage_queue = []       # verified hits awaiting staging
+        self._pending_detect = []    # inserted rows awaiting scoring
+        self._pending_scores = None  # (scores [Q, K] on the device, floor)
+        self._pending_gate = None    # (rows, fetched scores, floor)
+        self._pending_verify = None  # gate_and_dispatch result to finish
+        self._needs_optimize = False
+        self._pending_refine = None  # edge refinement awaiting kf rows
+        self.loop_stats = {"hits": 0, "staged": 0, "attached": 0,
+                           "good_frames": 0, "retired": 0}
+        self.timings = {"dispatch": 0.0, "sync": 0.0, "insert": 0.0,
+                        "publish": 0.0, "drain": 0.0, "blocks": 0,
+                        "host_syncs": 0}
         self.reset()
 
     # -- lifecycle ----------------------------------------------------------
@@ -132,8 +214,13 @@ class VinsSystem:
         self.pnp = self.pnp._replace(
             preints=pnp_mod.window_preints(self.pnp, cfg))
         self.frame_idx = 0
+        self.kf_count = 0
         self._pending_chunk: Optional[pre_mod.ImuChunk] = None
-        self._loop_state = self._loop_inactive
+        # Device-carried loop lifecycle (dropped with the estimator state).
+        self._loop_dev: Optional[LoopInput] = None
+        self._anchor_dev: Optional[stream_mod.LoopAnchor] = None
+        self._anchor_live = False
+        self._pending_loop = None    # host mirror of the staged constraint
         if not keep_trajectory:
             self.trajectory: List[np.ndarray] = []
             self._recover_anchor = None
@@ -141,7 +228,10 @@ class VinsSystem:
 
     def _fail_reset(self):
         """Failure recovery (VINS.cpp:463-467): re-enter INITIAL, keep the
-        trajectory, re-anchor the next init at the last good pose."""
+        trajectory, re-anchor the next init at the last good pose, and
+        start a new loop-DB segment."""
+        if self.loop is not None:
+            self.loop.new_segment()
         anchor = self._last_good
         self.reset(keep_trajectory=True)
         self._recover_anchor = anchor
@@ -150,6 +240,22 @@ class VinsSystem:
         if self._pending_chunk is None:
             return chunk
         return marg.merge_chunks(self._pending_chunk, chunk)
+
+    def _drift_correct(self, p: np.ndarray, q: np.ndarray):
+        """The pose-graph drift applied on the host (numpy only)."""
+        if self.loop is None:
+            return p, q
+        R, t = self.loop.r_drift, self.loop.t_drift
+        p2 = (R @ p + t).astype(np.float32)
+        q2 = _np_rotmat_to_quat(R @ _np_quat_to_rotmat(q))
+        return p2, q2
+
+    def _drift_correct_points(self, pts: np.ndarray) -> np.ndarray:
+        """The drift applied to the published sparse map (VINS.cpp:307-331)."""
+        if self.loop is None:
+            return pts
+        return (pts @ self.loop.r_drift.T
+                + self.loop.t_drift[None, :]).astype(np.float32)
 
     # -- interactive entry (INITIAL) -----------------------------------------
 
@@ -191,8 +297,8 @@ class VinsSystem:
         if self.initializer is None:
             raise NotImplementedError(
                 "visual-inertial initialization (core/initialization.py) "
-                "is not ported yet (ROADMAP item 17): pass an initializer, "
-                "e.g. io.synthetic.ground_truth_initializer(seq, cfg)")
+                "is not ported yet: pass an initializer, e.g. "
+                "io.synthetic.ground_truth_initializer(seq, cfg)")
 
         # Keep only ids seen in >= 2 boot frames (the only tracks the
         # initializer can use), most-observed first when they overflow
@@ -233,9 +339,10 @@ class VinsSystem:
         self._sync_pnp_from_backend()
         p_raw = window.p[F - 1].cpu().numpy()
         q_raw = window.q[F - 1].cpu().numpy()
-        self._last_good = (p_raw, lie.np_yaw(q_raw))
+        self._last_good = (p_raw, _np_yaw(q_raw))
+        p, q = self._drift_correct(p_raw, q_raw)
         return PipelineOutput(
-            t=t, p=p_raw, q=q_raw, p_raw=p_raw, is_keyframe=True,
+            t=t, p=p, q=q, p_raw=p_raw, is_keyframe=True,
             initialized=True, n_tracked=int(front.n_tracked),
             solver_cost=0.0, loop_hit=None)
 
@@ -253,7 +360,12 @@ class VinsSystem:
         return stream_mod.ScanState(
             tracker=self.tracker.state, pnp=self.pnp, est=self.est,
             pending=pending, has_pending=self._pending_chunk is not None,
-            phase=self.frame_idx % self.cfg.freq, loop=self._loop_state,
+            phase=self.frame_idx % self.cfg.freq,
+            loop=(self._loop_dev if self._loop_dev is not None
+                  else self._loop_inactive),
+            anchor=(self._anchor_dev if self._anchor_dev is not None
+                    else self._anchor_inactive),
+            anchor_live=self._anchor_live,
             solver_budget=self.solver_budget)
 
     def dispatch_block(self, imgs: torch.Tensor, chunks: pre_mod.ImuChunk,
@@ -264,15 +376,16 @@ class VinsSystem:
         if not self.initialized:
             raise RuntimeError("block mode requires an initialized system")
         t0 = time.perf_counter()
+        imgs = imgs.to(self.device, torch.float32)
         state2, outs = stream_mod.run_vio_scan(
-            self._scan_state(), imgs.to(self.device, torch.float32), chunks,
-            self.cfg, self.ext, self.gravity, use_pnp=self.use_pnp,
-            gumbel=gumbel)
+            self._scan_state(), imgs, chunks, self.cfg, self.ext,
+            self.gravity, use_pnp=self.use_pnp, gumbel=gumbel)
         n = int(imgs.shape[0])
         self.tracker.state = state2.tracker
         self.pnp = state2.pnp
         self.est = state2.est
-        self._loop_state = state2.loop
+        self._loop_dev = state2.loop
+        self._anchor_dev = state2.anchor
         self._pending_chunk = state2.pending if state2.has_pending else None
         self.frame_idx += n
         self.timings["dispatch"] += time.perf_counter() - t0
@@ -281,41 +394,223 @@ class VinsSystem:
         self.timings["host_syncs"] += int(sum(
             1 for k in range(n) if (self.frame_idx - n + k) % self.cfg.freq
             == 0))
-        return (outs, n, ts)
+        # With one block in flight, a staged constraint rides exactly the
+        # block dispatched next, which the next sync_block closes out.
+        return (outs, imgs, n, ts, self._pending_loop is not None)
 
     def sync_block(self, handle):
-        """Fetch the block's packed per-frame rows (one device-to-host copy
-        plus the sparse map) and run the failure bookkeeping."""
+        """Fetch, in one device-to-host copy, the block's packed per-frame
+        rows and sparse map with the previous block's detection scores,
+        verify results, the drift and the anchor's pending flag; run the
+        failure bookkeeping and the loop-edge lifecycle of the constraint
+        that rode the block, finish verification, and stage the newest
+        verified hit as an anchor for the next block."""
         t0 = time.perf_counter()
-        outs, n, ts = handle
-        packed_h = outs.packed.cpu().numpy()
-        pcl_h = outs.point_cloud.cpu().numpy()
-        pok_h = outs.point_valid.cpu().numpy()
+        outs, imgs, n, ts, loop_rode = handle
+        pending_detect, self._pending_detect = self._pending_detect, []
+        pending_scores, self._pending_scores = self._pending_scores, None
+        scores_dev, floor = None, 0.0
+        if pending_detect and self.use_loop:
+            if pending_scores is None:
+                pending_scores = self.loop.dispatch_scores(pending_detect)
+            scores_dev, floor = pending_scores
+        pend_verify, self._pending_verify = self._pending_verify, None
+        vhandles = (self.loop.pending_verify_handles(pend_verify)
+                    if pend_verify is not None else [])
+        leaves = [outs.packed, outs.point_cloud, outs.point_valid]
+        if self.use_loop:
+            anchor = (self._anchor_dev if self._anchor_dev is not None
+                      else self._anchor_inactive)
+            leaves += [self.loop._r_drift_dev, self.loop._t_drift_dev,
+                       anchor.pending]
+        n_fixed = len(leaves)
+        if scores_dev is not None:
+            leaves.append(scores_dev)
+        got = _fetch_flat(leaves + list(vhandles))
         self.timings["host_syncs"] += 1
+        packed_h, pcl_h, pok_h = got[:3]
+        scores_h = got[n_fixed] if scores_dev is not None else None
+        vfetched = got[n_fixed + (scores_dev is not None):]
         S = stream_mod
         p_h = packed_h[:, S.PACK_P]
         q_h = packed_h[:, S.PACK_Q]
         fail_h = packed_h[:, S.PACK_FAIL] > 0.5
+        is_be_h = packed_h[:, S.PACK_IS_BE] > 0.5
+        lgood_h = packed_h[:, S.PACK_LGOOD] > 0.5
+        lry_h = packed_h[:, S.PACK_LYAW]
+        lret_h = packed_h[:, S.PACK_LRET] > 0.5
+        lrt_h = packed_h[:, S.PACK_LREL_T]
+        if self.use_loop:
+            self.loop.sync_drift(got[3], got[4])
+            # A sync that shows the anchor done lets the next blocks skip
+            # the attach (stream.ScanState.anchor_live).
+            self._anchor_live = bool(got[5])
         fail_idx = np.flatnonzero(fail_h)
         fail_at = int(fail_idx[0]) if len(fail_idx) else None
         n_ok = fail_at if fail_at is not None else n
+        self.loop_stats["good_frames"] += int(np.sum(lgood_h[:n_ok]))
+
+        # Loop-edge lifecycle of the constraint that rode this block: its
+        # last good readout refines the edge once this block's keyframes
+        # have rows (insert_block_keyframes); retirement or a failure
+        # closes it and schedules the pose graph.
+        if self._pending_loop is not None and loop_rode:
+            pl = self._pending_loop
+            ret_idx = np.flatnonzero(lret_h[:n_ok])
+            stop = int(ret_idx[0]) + 1 if len(ret_idx) else n_ok
+            good_idx = np.flatnonzero(lgood_h[:stop])
+            if len(good_idx):
+                if not pl["attached"]:
+                    pl["attached"] = True
+                    self.loop_stats["attached"] += 1
+                g = int(good_idx[-1])
+                self._pending_refine = {
+                    "edge_abs": pl["edge_abs"], "g": g, "t": lrt_h[g],
+                    "ryaw": float(lry_h[g]), "p_g": p_h[g],
+                    "yaw_g": _np_yaw(q_h[g])}
+            if len(ret_idx) or fail_at is not None:
+                self.loop_stats["retired"] += int(len(ret_idx) > 0)
+                self._needs_optimize = True
+                self._pending_loop = None
+            else:
+                pl["ttl"] -= int(np.sum(is_be_h[:n_ok]))
+
+        loop_hits = {}
+        if pend_verify is not None:
+            hits = self.loop.finish_detect(pend_verify, vfetched)
+            for idx, hit in zip(pend_verify[0], hits):
+                if hit is not None:
+                    loop_hits[-1 - idx] = hit.old_idx
+                    self._stage_queue.append(hit)
+                    self.loop_stats["hits"] += 1
+            self._stage_queue = self._stage_queue[-4:]
+        if pending_detect and self.use_loop and scores_h is not None:
+            self._pending_gate = (pending_detect, scores_h, floor)
+        # One constraint in flight at a time: stage the newest queued hit.
+        if self._pending_loop is None and self._stage_queue:
+            hit = self._stage_queue.pop()
+            self._stage_queue.clear()
+            self._stage_anchor_from_hit(hit)
+
         if fail_at is not None:
             if fail_at >= 1:
                 self._last_good = (p_h[fail_at - 1],
-                                   lie.np_yaw(q_h[fail_at - 1]))
+                                   _np_yaw(q_h[fail_at - 1]))
             self._fail_reset()
         elif n_ok >= 1:
-            self._last_good = (p_h[n_ok - 1], lie.np_yaw(q_h[n_ok - 1]))
+            self._last_good = (p_h[n_ok - 1], _np_yaw(q_h[n_ok - 1]))
         self.timings["sync"] += time.perf_counter() - t0
-        return dict(n=n, n_ok=n_ok, fail_at=fail_at, p=p_h, q=q_h,
-                    is_kf=packed_h[:, S.PACK_IS_KF] > 0.5,
-                    is_be=packed_h[:, S.PACK_IS_BE] > 0.5,
-                    cost=packed_h[:, S.PACK_COST],
+        return dict(outs=outs, imgs=imgs, n=n, n_ok=n_ok, fail_at=fail_at,
+                    p=p_h, q=q_h, is_kf=packed_h[:, S.PACK_IS_KF] > 0.5,
+                    is_be=is_be_h, cost=packed_h[:, S.PACK_COST],
                     ntr=packed_h[:, S.PACK_NTRACK].astype(np.int32),
-                    ts=ts, pcl=pcl_h, pok=pok_h)
+                    loop_hits=loop_hits, ts=ts, pcl=pcl_h, pok=pok_h)
+
+    def insert_block_keyframes(self, prep) -> None:
+        """Gate the fetched scores and dispatch verification, run a
+        deferred pose graph, insert every loop_freq-th keyframe of the
+        block into the loop DB, apply a deferred edge refinement and
+        dispatch the new rows' scores (fetched by the next sync)."""
+        if not self.use_loop:
+            return
+        t0 = time.perf_counter()
+        pending_gate, self._pending_gate = self._pending_gate, None
+        if pending_gate is not None:
+            self._pending_verify = self.loop.gate_and_dispatch(
+                *pending_gate, slim=True)
+        if self._needs_optimize:
+            self.loop.optimize(defer_fetch=True)
+            self._needs_optimize = False
+        outs, imgs, ts = prep["outs"], prep["imgs"], prep["ts"]
+        # UIDs, not rows: an insert at capacity resamples and compacts the
+        # rows of keyframes inserted earlier in this loop.
+        ins_uids = []
+        for k in range(prep["n_ok"]):
+            if not bool(prep["is_kf"][k]):
+                continue
+            self.kf_count += 1
+            if self.kf_count % self.cfg.loop.loop_freq != 0:
+                continue
+            idx = self.loop.add_keyframe(
+                imgs[k], outs.p[k], outs.q[k], outs.kf_pts_px[k],
+                outs.kf_valid[k], outs.kf_pts_w[k], outs.kf_w_ok[k],
+                window_ids=outs.kf_ids[k],
+                t=float(ts[k]) if ts is not None else 0.0,
+                p_host=prep["p"][k], yaw_host=_np_yaw(prep["q"][k]))
+            ins_uids.append((k, self.loop.uid_of(idx)))
+        pairs = [(k, self.loop.row_of(u)) for k, u in ins_uids]
+        pairs = [(k, r) for k, r in pairs if r >= 0]
+        inserted = [r for _, r in pairs]
+        self._apply_pending_refine(pairs)
+        self._pending_detect = inserted
+        if inserted:
+            self._pending_scores = self.loop.dispatch_scores(inserted)
+        self.timings["insert"] += time.perf_counter() - t0
+
+    def _apply_pending_refine(self, pairs) -> None:
+        """Apply a deferred edge refinement: re-point the edge at the
+        keyframe inserted nearest the readout frame (or the newest row),
+        composing the raw-odometry gap, and schedule the pose graph.
+        pairs: [(frame offset in the block, DB row)] of this block."""
+        pr, self._pending_refine = self._pending_refine, None
+        if pr is None or self.loop is None:
+            return
+        e = self.loop.edge_index(pr["edge_abs"])
+        if e < 0:
+            return
+        if pairs:
+            _, j = min(pairs, key=lambda kr: abs(kr[0] - pr["g"]))
+        elif self.loop.count >= 1:
+            j = self.loop.count - 1
+        else:
+            return
+        self._refine_edge_to_kf(e, pr["t"], pr["ryaw"], pr["p_g"],
+                                pr["yaw_g"], j)
+        self._needs_optimize = True
+
+    def _refine_edge_to_kf(self, e, t_g, ryaw_g, p_g, yaw_g, j) -> None:
+        """Re-point edge e at keyframe row j: compose the raw-odometry gap
+        between the readout frame (raw pose p_g, yaw_g) and keyframe j
+        into the (t, yaw) measurement, in the solved old pose's yaw
+        frame."""
+        p_j = self.loop._kf_p_np[j]
+        yaw_j = float(self.loop._kf_yaw_np[j])
+        yaw_old = yaw_g - ryaw_g
+        c, s = np.cos(yaw_old), np.sin(yaw_old)
+        Rz_T = np.array([[c, s, 0.0], [-s, c, 0.0], [0.0, 0.0, 1.0]],
+                        np.float32)
+        t_j = np.asarray(t_g, np.float32) + Rz_T @ (
+            np.asarray(p_j, np.float32) - np.asarray(p_g, np.float32))
+        dyaw = ryaw_g + (yaw_j - yaw_g)
+        dyaw = float(np.arctan2(np.sin(dyaw), np.cos(dyaw)))
+        self.loop.update_loop_edge(e, t_j, dyaw, j=j)
+
+    def _stage_anchor_from_hit(self, hit) -> None:
+        """Stage a verified hit for ride-time attachment in the next
+        block's backend frames: the old keyframe's rows (a device copy)
+        and its PnP-refined pose (written by fill_, no upload)."""
+        lp = self.cfg.loop
+        F = self.cfg.window.num_frames
+        dev = self.device
+        desc_o, ok_o, obs_o = self.loop.anchor_rows(hit.old_idx)
+        p_init = torch.empty(3, device=dev)
+        q_init = torch.empty(4, device=dev)
+        _fill(p_init, np.asarray(hit.p_old, np.float32))
+        _fill(q_init, np.asarray(hit.q_old, np.float32))
+        self._anchor_dev = stream_mod.LoopAnchor(
+            desc_old=desc_o, ok_old=ok_o, obs_old=obs_o, p_init=p_init,
+            q_init=q_init,
+            ttl=torch.full((), lp.attach_ttl, dtype=torch.int32, device=dev),
+            pending=torch.ones((), dtype=torch.bool, device=dev))
+        self._anchor_live = True
+        self._pending_loop = {"edge_abs": hit.edge_abs,
+                              "old_idx": hit.old_idx,
+                              "ttl": lp.attach_ttl + F, "attached": False}
+        self.loop_stats["staged"] += 1
 
     def publish_block(self, prep) -> List[PipelineOutput]:
-        """Assemble the per-frame outputs of a synced block."""
+        """Assemble the per-frame outputs of a synced block, with the
+        pose-graph drift applied to poses and backend-frame point clouds."""
         t0 = time.perf_counter()
         ts = prep["ts"]
         results = []
@@ -323,14 +618,17 @@ class VinsSystem:
             t = float(ts[k]) if ts is not None else 0.0
             pcl = pval = None
             if prep["is_be"][k]:
-                pcl = prep["pcl"][k].astype(np.float32)
+                pcl = self._drift_correct_points(
+                    prep["pcl"][k].astype(np.float32))
                 pval = prep["pok"][k]
-            p = prep["p"][k]
+            p_raw = prep["p"][k]
+            p, q = self._drift_correct(p_raw, prep["q"][k])
             results.append(PipelineOutput(
-                t=t, p=p, q=prep["q"][k], p_raw=p,
+                t=t, p=p, q=q, p_raw=p_raw,
                 is_keyframe=bool(prep["is_kf"][k]), initialized=True,
                 n_tracked=int(prep["ntr"][k]),
-                solver_cost=float(prep["cost"][k]), loop_hit=None,
+                solver_cost=float(prep["cost"][k]),
+                loop_hit=prep["loop_hits"].get(k),
                 point_cloud=pcl, point_valid=pval))
             self.trajectory.append(p)
         fail_at = prep["fail_at"]
@@ -345,37 +643,82 @@ class VinsSystem:
         self.timings["publish"] += time.perf_counter() - t0
         return results
 
+    def drain_loop_work(self) -> None:
+        """End of a stream: gate and verify what is pending, detect the
+        last inserted keyframes, close a pending constraint, run the pose
+        graph once if anything changed, and fetch the drift."""
+        if not self.use_loop:
+            return
+        t0 = time.perf_counter()
+        pending, self._pending_detect = self._pending_detect, []
+        pending_scores, self._pending_scores = self._pending_scores, None
+        n_hits = 0
+        pending_gate, self._pending_gate = self._pending_gate, None
+        if pending_gate is not None and self._pending_verify is None:
+            self._pending_verify = self.loop.gate_and_dispatch(
+                *pending_gate)
+        pend_verify, self._pending_verify = self._pending_verify, None
+        if pend_verify is not None:
+            vfetched = _fetch(self.loop.pending_verify_handles(pend_verify))
+            vh = [h for h in self.loop.finish_detect(pend_verify, vfetched)
+                  if h is not None]
+            n_hits += len(vh)
+            self._stage_queue.extend(vh)
+        if pending:
+            if pending_scores is not None:
+                hits_all = self.loop.detect_from_scores(
+                    pending, pending_scores[0].cpu().numpy(),
+                    pending_scores[1])
+            else:
+                hits_all = self.loop.detect_many(pending)
+            hits = [h for h in hits_all if h is not None]
+            n_hits += len(hits)
+            self._stage_queue.extend(hits)
+            self._stage_queue = self._stage_queue[-4:]
+        self.loop_stats["hits"] += n_hits
+        if self._pending_loop is not None:
+            self.loop.optimize()
+            self._pending_loop = None
+        elif n_hits or self._needs_optimize:
+            self.loop.optimize()
+        self._needs_optimize = False
+        self.loop.sync_drift()
+        self.timings["drain"] += time.perf_counter() - t0
+
     def process_stream(self, imgs: torch.Tensor, chunks: pre_mod.ImuChunk,
                        block: int = 48, ts=None,
                        gumbel: Optional[torch.Tensor] = None
                        ) -> List[PipelineOutput]:
         """A staged sequence: interactive frames until initialized, then
-        blocks of `block` frames; an in-block failure re-enters INITIAL
-        and reprocesses from the frame after the failure. gumbel:
-        optional per-frame RANSAC noise [n, n_hyps, M]. Returns one
-        output per input frame."""
+        blocks of `block` frames, each synced, its keyframes inserted and
+        published before the next is dispatched (the JAX pipeline's
+        process_stream at depth=1); an in-block failure re-enters INITIAL
+        and reprocesses from the frame after the failure; pending loop
+        work is drained at the end. gumbel: optional per-frame RANSAC
+        noise [n, n_hyps, M]. Returns one output per input frame."""
         n = int(imgs.shape[0])
         results: List[PipelineOutput] = []
         i = 0
         while i < n:
-            g = None if gumbel is None else gumbel
             if not self.initialized:
                 results.append(self.process_frame(
                     imgs[i].to(self.device, torch.float32),
                     pre_mod.ImuChunk(*[x[i] for x in chunks]),
                     t=float(ts[i]) if ts is not None else 0.0,
-                    gumbel=None if g is None else g[i]))
+                    gumbel=None if gumbel is None else gumbel[i]))
                 i += 1
                 continue
             e = min(i + block, n)
             handle = self.dispatch_block(
                 imgs[i:e], pre_mod.ImuChunk(*[x[i:e] for x in chunks]),
                 ts=ts[i:e] if ts is not None else None,
-                gumbel=None if g is None else g[i:e])
+                gumbel=None if gumbel is None else gumbel[i:e])
             prep = self.sync_block(handle)
+            self.insert_block_keyframes(prep)
             results.extend(self.publish_block(prep))
             i = i + prep["fail_at"] + 1 if prep["fail_at"] is not None \
                 else e
+        self.drain_loop_work()
         return results
 
     def _null_output(self, t, front, status: str = "",

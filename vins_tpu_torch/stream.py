@@ -1,15 +1,18 @@
 """Streaming block path: a block of camera frames through the whole
-per-frame pipeline (port of vins_tpu/stream.py, loop-closure anchor
-left out).
+per-frame pipeline (port of vins_tpu/stream.py).
 
 precompute_block runs CLAHE, the pyramid and the Scharr gradients for
 the whole block in batched ops; vio_scan_step then runs one frame:
 tracking (K1 forward and backward, K2), F-RANSAC, top-up on backend
 frames, the dead-reckoned 30 Hz pose, and on every freq-th frame the
-sliding-window backend with the pnp re-sync. The JAX scan's phase,
-pending-chunk flag and solver budget are known on the host here, so the
-backend branch is a Python `if` with no device sync. ScanState.loop
-stays, always inactive, until the loop slice is ported.
+ride-time loop attach, the sliding-window backend with the pnp re-sync
+and the loop constraint's lifecycle. The JAX scan's phase, pending-chunk
+flag and solver budget are known on the host here, so the backend branch
+is a Python `if` with no device sync. Whether a staged loop anchor may
+still be pending is host-known too (ScanState.anchor_live: set when the
+host stages one, cleared when a sync shows it done); while it is, the
+attach is computed on every backend frame and selected by the device
+flags, as the JAX scan's lax.cond would pick it.
 """
 from __future__ import annotations
 
@@ -26,7 +29,9 @@ from .core.estimator import (BackendState, FrameInput, LoopInput,
 from .core.factors import Extrinsics
 from .core.solver import _sel
 from .frontend import tracker as tr_mod
+from .ops import brief as brief_mod
 from .ops import image as image_mod
+from .utils import lie
 
 
 def precompute_block(imgs: torch.Tensor, cfg: VinsConfig):
@@ -41,6 +46,32 @@ def precompute_block(imgs: torch.Tensor, cfg: VinsConfig):
     return tuple(pyrs), grads
 
 
+class LoopAnchor(NamedTuple):
+    """A verified loop hit staged for ride-time attachment: the OLD
+    keyframe's descriptors and normalized observations, matched against
+    the live frame's features at the next backend frames (so the join is
+    fresh whatever the detection latency), and its PnP-refined pose."""
+
+    desc_old: torch.Tensor   # [Nf, 8] int32 BRIEF words of the old kf
+    ok_old: torch.Tensor     # [Nf] bool
+    obs_old: torch.Tensor    # [Nf, 2] normalized obs in the old kf
+    p_init: torch.Tensor     # [3] PnP-refined old pose (raw odometry frame)
+    q_init: torch.Tensor     # [4]
+    ttl: torch.Tensor        # [] int32 backend frames left to try
+    pending: torch.Tensor    # [] bool attach not yet done
+
+    @staticmethod
+    def inactive(Nf: int, dtype=torch.float32, device="cpu") -> "LoopAnchor":
+        return LoopAnchor(
+            desc_old=torch.zeros((Nf, 8), dtype=torch.int32, device=device),
+            ok_old=torch.zeros((Nf,), dtype=torch.bool, device=device),
+            obs_old=torch.zeros((Nf, 2), dtype=dtype, device=device),
+            p_init=torch.zeros((3,), dtype=dtype, device=device),
+            q_init=lie.quat_identity(dtype, device),
+            ttl=torch.zeros((), dtype=torch.int32, device=device),
+            pending=torch.zeros((), dtype=torch.bool, device=device))
+
+
 class ScanState(NamedTuple):
     """Everything carried frame to frame by the block pipeline."""
 
@@ -50,7 +81,9 @@ class ScanState(NamedTuple):
     pending: pre_mod.ImuChunk    # IMU accumulated since the last backend frame
     has_pending: bool            # host-known
     phase: int                   # host-known; 0 = backend frame
-    loop: LoopInput              # inactive until the loop slice lands
+    loop: LoopInput              # active loop constraint (weight 0 = none)
+    anchor: LoopAnchor           # staged hit awaiting attachment
+    anchor_live: bool            # host-known: the anchor may be pending
     solver_budget: int           # LM iteration budget
 
 
@@ -119,13 +152,73 @@ def _sync_pnp(pnp: pnp_mod.PnpWindow, est: BackendState, cfg: VinsConfig,
     return pnp_mod.update_features(pnp, pts_w, valid, track_len)
 
 
-def vio_scan_step(state: ScanState, pyr, grads, chunk: pre_mod.ImuChunk,
-                  cfg: VinsConfig, ext: Extrinsics, gravity: torch.Tensor,
-                  use_pnp: bool = True,
+def _nanmedian(x: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
+    """Median of x over sel as jnp.nanmedian takes it (the mean of the
+    two middle values for an even count: low*(1-h) + high*h, h = 0 or
+    ½), NaN for an empty selection; computed without a host sync."""
+    n = torch.sum(sel)
+    s, _ = torch.sort(torch.where(sel, x, float("inf")))
+    pos = 0.5 * (n - 1).to(x.dtype)
+    lo = torch.floor(pos)
+    hw = pos - lo
+    lo_i = torch.clamp(lo.long(), 0, x.shape[0] - 1)
+    hi_i = torch.clamp(torch.ceil(pos).long(), 0, x.shape[0] - 1)
+    med = s[lo_i] * (1.0 - hw) + s[hi_i] * hw
+    return torch.where(n > 0, med, float("nan"))
+
+
+def _attach_loop(est: BackendState, anchor: LoopAnchor, loop_prev: LoopInput,
+                 tracker: tr_mod.TrackerState, img: torch.Tensor,
+                 cfg: VinsConfig, ext: Extrinsics):
+    """Ride-time loop attachment: match the staged old keyframe's
+    descriptors against the live frame's features (BRIEF from the RAW
+    frame, as the DB's descriptors are), keep the matches whose landmarks
+    reproject through the old pose near the consensus (median) offset,
+    and slot-align them with the landmark table. Returns (LoopInput —
+    the new block where >= 10 slots attach, else loop_prev — and good)."""
+    lp = cfg.loop
+    F = cfg.window.num_frames
+    desc_cur = brief_mod.extract_brief(img, tracker.pts, tracker.valid)
+    m = brief_mod.match_descriptors(
+        desc_cur, anchor.desc_old, tracker.valid, anchor.ok_old,
+        max_dist=lp.match_max_dist, ratio=lp.match_ratio)
+    win = est.window
+    ptw = landmark_world_points(win, est.feats, ext)
+    ptw_t, has_w = _gather_by_id(tracker.ids, est.feats.track_id, ptw,
+                                 est.feats.valid & (win.inv_depth > 1e-3))
+    R_old = lie.quat_to_rotmat(anchor.q_init)
+    R_ic = lie.quat_to_rotmat(ext.qic)
+    Xc = ((ptw_t - anchor.p_init) @ R_old - ext.tic) @ R_ic
+    z = Xc[:, 2]
+    proj = Xc[:, :2] / torch.clamp(z, min=1e-3)[:, None]
+    obs_m = anchor.obs_old[m.idx.long()]
+    d = proj - obs_m
+    err = torch.sqrt(torch.sum(d * d, -1))
+    sel = m.ok & has_w & (z > 0.1)
+    med = _nanmedian(err, sel)
+    med = torch.where(torch.isfinite(med), med, 1e6)
+    row_ok = (sel & (torch.abs(err - med) < lp.attach_gate)
+              & (err < lp.attach_max))
+    obs_slot, ok_slot = _gather_by_id(est.feats.track_id, tracker.ids, obs_m,
+                                      row_ok)
+    ok_slot = ok_slot & (est.feats.track_id >= 0)
+    good = torch.sum(ok_slot) >= 10
+    loop_new = LoopInput(
+        obs_old=obs_slot, ok=ok_slot, ids=est.feats.track_id,
+        p_init=anchor.p_init, q_init=anchor.q_init,
+        ttl=torch.full((), F, dtype=torch.int32, device=z.device),
+        weight=torch.where(good, 1.0, 0.0).to(z.dtype))
+    return _sel(good, loop_new, loop_prev), good
+
+
+def vio_scan_step(state: ScanState, pyr, grads, img: torch.Tensor,
+                  chunk: pre_mod.ImuChunk, cfg: VinsConfig, ext: Extrinsics,
+                  gravity: torch.Tensor, use_pnp: bool = True,
                   gumbel: Optional[torch.Tensor] = None
                   ) -> Tuple[ScanState, ScanOutput]:
     """One camera frame of the block pipeline. pyr/grads: this frame's
-    precomputed prep; gumbel: optional RANSAC noise for this frame."""
+    precomputed prep; img: the raw frame (the ride-time attach extracts
+    BRIEF from it); gumbel: optional RANSAC noise for this frame."""
     F = cfg.window.num_frames
     Mw = cfg.frontend.max_features
     M = cfg.window.max_landmarks
@@ -153,10 +246,23 @@ def vio_scan_step(state: ScanState, pyr, grads, chunk: pre_mod.ImuChunk,
 
     false = torch.zeros((), dtype=torch.bool, device=dev)
     zero = torch.zeros((), dtype=dtype, device=dev)
-    est, loop = state.est, state.loop
+    est, loop, anchor = state.est, state.loop, state.anchor
     if is_backend:
+        loop_in, anchor_expired = state.loop, false
+        if state.anchor_live:
+            # One attach per staged hit, only while no constraint rides.
+            att_try = (anchor.pending & (anchor.ttl > 0)
+                       & (state.loop.weight <= 0))
+            loop_att, good = _attach_loop(state.est, anchor, state.loop,
+                                          tracker, img, cfg, ext)
+            attached = att_try & good
+            loop_in = _sel(att_try, loop_att, state.loop)
+            ttl_a = torch.where(anchor.pending, anchor.ttl - 1, anchor.ttl)
+            anchor_expired = anchor.pending & ~attached & (ttl_a <= 0)
+            anchor = anchor._replace(
+                ttl=ttl_a, pending=anchor.pending & ~attached & (ttl_a > 0))
         inp = FrameInput(chunk=merged, ids=front.ids, obs=front.obs,
-                         obs_valid=front.obs_valid, loop=state.loop,
+                         obs_valid=front.obs_valid, loop=loop_in,
                          iter_budget=state.solver_budget)
         est2, out = backend_step(state.est, inp, cfg, ext, gravity)
         # Freeze on failure (the host decides the recovery between blocks).
@@ -168,12 +274,15 @@ def vio_scan_step(state: ScanState, pyr, grads, chunk: pre_mod.ImuChunk,
             tracker.ids, est.feats.track_id, pts_w,
             est.feats.valid & (win.inv_depth > 1e-3))
         kf_w_ok = has_t & tracker.valid
-        active = state.loop.weight > 0
-        ttl2 = torch.where(active, state.loop.ttl - 1, state.loop.ttl)
+        # Loop-constraint lifecycle: it rides while enough matched tracks
+        # survive and its TTL lasts; retirement (or an anchor that expired
+        # unattached) triggers the host's pose-graph run.
+        active = loop_in.weight > 0
+        ttl2 = torch.where(active, loop_in.ttl - 1, loop_in.ttl)
         retired = active & ((ttl2 <= 0) | (out.loop_support < 10))
-        loop = state.loop._replace(
+        loop = loop_in._replace(
             ttl=ttl2, weight=torch.where(retired | out.failure, 0.0,
-                                         state.loop.weight))
+                                         loop_in.weight))
         p_out, q_out = out.pose_p, out.pose_q
         is_kf, failure, cost = out.is_keyframe, out.failure, \
             out.stats.final_cost
@@ -181,7 +290,7 @@ def vio_scan_step(state: ScanState, pyr, grads, chunk: pre_mod.ImuChunk,
         pcl_ok = out.point_valid
         loop_good = out.loop_good & active
         loop_rel_t, loop_rel_yaw = out.loop_rel_t, out.loop_rel_yaw
-        loop_retired = retired
+        loop_retired = retired | anchor_expired
     else:
         p_out, q_out = p30, q30
         is_kf, failure, cost = false, false, zero
@@ -198,6 +307,7 @@ def vio_scan_step(state: ScanState, pyr, grads, chunk: pre_mod.ImuChunk,
     new_state = ScanState(tracker=tracker, pnp=pnp, est=est,
                           pending=pending, has_pending=not is_backend,
                           phase=(state.phase + 1) % cfg.freq, loop=loop,
+                          anchor=anchor, anchor_live=state.anchor_live,
                           solver_budget=state.solver_budget)
     f32 = torch.float32
     is_be_t = torch.full((), is_backend, dtype=torch.bool, device=dev)
@@ -234,7 +344,7 @@ def run_vio_scan(state: ScanState, imgs: torch.Tensor,
         grad = tuple((g[0][k], g[1][k]) for g in grads)
         chunk = pre_mod.ImuChunk(*[x[k] for x in chunks])
         state, out = vio_scan_step(
-            state, pyr, grad, chunk, cfg, ext, gravity, use_pnp,
+            state, pyr, grad, imgs[k], chunk, cfg, ext, gravity, use_pnp,
             None if gumbel is None else gumbel[k])
         outs.append(out)
     return state, ScanOutput(*[torch.stack(xs) for xs in zip(*outs)])
