@@ -8,10 +8,18 @@ Phases (any failure exits non-zero, and no result line is printed):
   2. build    — compiles vins_tpu_torch/csrc/*.cu with nvcc (sm_90a), one
                 nvcc per source, all started together;
   3. kernels  — every kernel against its plain PyTorch version on the card,
-                at the main path's shapes, with kernel and plain times and
+                at the main path's shapes, with its device time (`ms`:
+                20 calls captured in a CUDA graph, one replay timed with
+                CUDA events; torch.profiler's kernel time beside it), its
+                eager call time (`call_ms`), the plain version's time and
                 the least time the card could take (bound):
-                K1 pyramidal LK and K2 patch NCC (M = 128 slots, 640x480
-                frames, 3 levels, win 21, 10 iterations, eps 0.01),
+                klt_fb_ncc, the main path's fused forward-backward-NCC
+                tracking kernel (M = 128 slots, 640x480 frames, 3 levels,
+                win 21, 10 iterations, eps 0.01; again bit for bit on
+                planes that are not 16-byte aligned), timed in turns
+                against the three launches it replaces (K1 forward, K1
+                backward, K2) on the same inputs,
+                K1 pyramidal LK and K2 patch NCC at the same shapes,
                 K4 one LK level (level 0 of the same shapes),
                 K3 BRIEF words (N = 512 keyframe keypoints and N = 128
                 tracked features on a blurred 640x480 frame, border
@@ -26,7 +34,8 @@ Phases (any failure exits non-zero, and no result line is printed):
                 slower w = 0.35 circle, checked for finite poses and an
                 aligned ATE under 0.15 m.
 Kernel launch counts are set to 0 just before each system run and read
-just after it; every kernel on a run's path must have launched there.
+just after it; every kernel on a run's path must have launched there
+(klt_fb_ncc once per tracked frame, the standalone K1 and K2 never).
 Each system run also counts its synchronizing CUDA calls block by block
 (torch.cuda.set_sync_debug_mode("warn")). A kernel's bound counts the
 bytes its inputs need (the pixels under the windows or taps it reads,
@@ -65,6 +74,7 @@ TRAJ_LOOP = dict(w=0.7, bob=0.15)
 FLOW_TOL = 1e-3         # px
 NCC_TOL = 1e-4
 OK_AGREE = 0.99
+FB_THRESH = 0.3         # ops/klt.track_pyramid_fb's round-trip bound, px
 
 # Published peaks of one H100 SXM: HBM3 bandwidth and dense FP32 rate.
 PEAK_BYTES_S = 3.35e12
@@ -87,7 +97,10 @@ def _fail(msg: str) -> None:
     sys.exit(1)
 
 
-def _time_ms(fn, reps: int = 20) -> float:
+def _call_ms(fn, reps: int = 20) -> float:
+    """What an eager caller pays per call: CUDA events around `reps`
+    calls. Where the host work of a call outlasts its kernel, this is
+    host time."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -99,6 +112,70 @@ def _time_ms(fn, reps: int = 20) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def _device_ms(fn, reps: int = 20) -> float:
+    """Device time per call: `reps` calls captured into one CUDA graph
+    (after a warm-up on a side stream, as torch.cuda.graphs asks) and
+    CUDA events around one replay, so no host work lies between the
+    launches. The wrappers launch on the current stream and allocate with
+    torch.empty, so the capture records their kernels."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def _profiled_ms(fn, kernels, reps: int = 20):
+    """Cross-check of _device_ms: the device time per call of the kernels
+    whose name holds one of `kernels` over `reps` eager calls, as
+    torch.profiler traces them; None where the trace holds no device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and any(k in e.name for k in kernels)]
+    if not times or sum(times) <= 0:
+        return None
+    return sum(times) / reps / 1e3
+
+
+def _timed(fn, *kernels: str) -> dict:
+    """Device time, profiled device time and eager call time of one call
+    of fn, which launches the named kernels."""
+    return dict(ms=_device_ms(fn), profiler_ms=_profiled_ms(fn, kernels),
+                call_ms=_call_ms(fn))
+
+
+def _ms_text(t: dict) -> str:
+    prof = ("not measured" if t["profiler_ms"] is None
+            else f"{t['profiler_ms']:.4f} ms")
+    return (f"device {t['ms']:.4f} ms (profiler {prof}), call "
+            f"{t['call_ms']:.4f} ms")
 
 
 def _card_line() -> str:
@@ -237,7 +314,7 @@ def brief_inputs(raw, n: int, device):
 
 def kernel_phase(cfg, device) -> list:
     import torch
-    from vins_tpu_torch.ops import brief, brief_cuda, klt_cuda
+    from vins_tpu_torch.ops import brief, brief_cuda, klt, klt_cuda
 
     fe = cfg.frontend
     win, iters, eps = fe.klt_window, fe.klt_iters, fe.klt_eps
@@ -245,14 +322,16 @@ def kernel_phase(cfg, device) -> list:
     M = pts.shape[0]
     f4 = 4.0
 
-    # K1's forward pass, then the backward pass seeded with the negated
-    # forward flow, as track_pyramid_fb runs them.
+    # K1's forward pass, then the backward pass from the forward result
+    # and its post-filtered status, seeded with the negated forward flow,
+    # as track_pyramid_fb ran them before the fused kernel.
     p_k, ok_k, e_k = klt_cuda.track_pyramid(pyr0, g0, pyr1, pts, valid,
                                             win, iters, eps)
     iters_k1 = []
     p_p, ok_p, e_p = klt_cuda.track_pyramid_plain(
         pyr0, g0, pyr1, pts, valid, win, iters, eps, iters_run=iters_k1)
-    bwd = (pyr1, g1, pyr0, p_k, ok_k, win, iters, eps, pts - p_k)
+    st_k = klt_cuda.post_filter(p_k, ok_k, e_k, valid, pyr1[0].shape)
+    bwd = (pyr1, g1, pyr0, p_k, st_k, win, iters, eps, pts - p_k)
     b_k = klt_cuda.track_pyramid(*bwd)
     b_p = klt_cuda.track_pyramid_plain(*bwd)
     torch.cuda.synchronize()
@@ -272,9 +351,9 @@ def kernel_phase(cfg, device) -> list:
         _fail(f"K1 flow differs from its plain version by {flow_err} px")
     if agree_frac < OK_AGREE:
         _fail(f"K1 ok agrees on only {agree_frac:.3f} of slots")
-    ms_k1 = _time_ms(lambda: klt_cuda.track_pyramid(
-        pyr0, g0, pyr1, pts, valid, win, iters, eps))
-    ms_p1 = _time_ms(lambda: klt_cuda.track_pyramid_plain(
+    t_k1 = _timed(lambda: klt_cuda.track_pyramid(
+        pyr0, g0, pyr1, pts, valid, win, iters, eps), "klt_pyramid_kernel")
+    ms_p1 = _call_ms(lambda: klt_cuda.track_pyramid_plain(
         pyr0, g0, pyr1, pts, valid, win, iters, eps), reps=5)
     # Bytes the function needs: per level, the prev, gx and gy windows
     # around each live slot's point and the next-frame window around its
@@ -303,8 +382,9 @@ def kernel_phase(cfg, device) -> list:
     k4_err = float((f4_k - f4_p)[both].abs().max()) if both.any() else 0.0
     if not np.isfinite(k4_err) or k4_err > FLOW_TOL:
         _fail(f"K4 flow differs from its plain version by {k4_err} px")
-    ms_k4 = _time_ms(lambda: klt_cuda.track_level(*lvl_args))
-    ms_p4 = _time_ms(lambda: klt_cuda.track_level_plain(*lvl_args), reps=5)
+    t_k4 = _timed(lambda: klt_cuda.track_level(*lvl_args),
+                  "klt_pyramid_kernel")
+    ms_p4 = _call_ms(lambda: klt_cuda.track_level_plain(*lvl_args), reps=5)
     k4_px = (3 * _window_pixels(pyr0[0], pts[valid], win)
              + _window_pixels(pyr0[0], (pts + f4_k)[valid], win))
     b_k4 = _bound(k4_px * f4 + M * (8 + 8 + 1) + M * (8 + 1 + 4),
@@ -317,14 +397,109 @@ def kernel_phase(cfg, device) -> list:
     ncc_err = float((n_k - n_p).abs().max())
     if not np.isfinite(ncc_err) or ncc_err > NCC_TOL:
         _fail(f"K2 differs from its plain version by {ncc_err}")
-    ms_k2 = _time_ms(lambda: klt_cuda.patch_ncc(pyr0[0], pyr1[0], pts, p_k,
-                                                win))
-    ms_p2 = _time_ms(lambda: klt_cuda.patch_ncc_plain(pyr0[0], pyr1[0], pts,
+    t_k2 = _timed(lambda: klt_cuda.patch_ncc(pyr0[0], pyr1[0], pts, p_k,
+                                             win), "patch_ncc_kernel")
+    ms_p2 = _call_ms(lambda: klt_cuda.patch_ncc_plain(pyr0[0], pyr1[0], pts,
                                                       p_k, win))
     # K2 scores every slot, live or not: one window per slot in each image.
     k2_px = (_window_pixels(pyr0[0], pts, win)
              + _window_pixels(pyr1[0], p_k, win))
     b_k2 = _bound(k2_px * f4 + 2 * M * 8 + M * 4, M * win * win * NCC_OPS)
+
+    # The fused kernel against its plain version (the composition
+    # track_pyramid_fb ran before), then timed in turns against the three
+    # launches it replaces on the same inputs: K1 forward, K1 backward
+    # seeded as above, K2.
+    fb_args = (pyr0, g0, pyr1, g1, pts, valid, win, iters, eps, FB_THRESH,
+               klt.NCC_MIN)
+    fb_k = klt_cuda.track_fb(*fb_args)
+    fb_p = klt_cuda.track_fb_plain(*fb_args)
+    torch.cuda.synchronize()
+    fb_agree = float((fb_k[1] == fb_p[1]).float().mean())
+    kept = fb_k[1] & fb_p[1]
+    fb_pts_err = (float((fb_k[0] - fb_p[0])[kept].abs().max())
+                  if kept.any() else 0.0)
+    fb_rt_err = (float((fb_k[2] - fb_p[2])[kept].abs().max())
+                 if kept.any() else 0.0)
+    fb_ncc_err = float((fb_k[3] - fb_p[3]).abs().max())
+    if fb_agree < 1.0:
+        print(f"klt_fb_ncc: status differs on slots "
+              f"{torch.nonzero(fb_k[1] != fb_p[1]).flatten().tolist()}")
+    if not (np.isfinite(fb_pts_err) and fb_pts_err <= FLOW_TOL):
+        _fail(f"klt_fb_ncc points differ from the plain version by "
+              f"{fb_pts_err} px")
+    if not (np.isfinite(fb_rt_err) and fb_rt_err <= 2 * FLOW_TOL):
+        _fail(f"klt_fb_ncc round trips differ from the plain version by "
+              f"{fb_rt_err} px")
+    if not (np.isfinite(fb_ncc_err) and fb_ncc_err <= NCC_TOL):
+        _fail(f"klt_fb_ncc NCC differs from the plain version by "
+              f"{fb_ncc_err}")
+    if fb_agree < OK_AGREE:
+        _fail(f"klt_fb_ncc status agrees on only {fb_agree:.3f} of slots")
+    # Planes that are not 16-byte aligned take the kernel's 4-byte copies
+    # into the same shared-memory layout: the same bits must come out.
+    def shifted(x):
+        y = torch.empty(x.numel() + 1, device=x.device)[1:].view(x.shape)
+        return y.copy_(x)
+
+    fb_shifted = klt_cuda.track_fb(
+        [shifted(p) for p in pyr0], [tuple(map(shifted, g)) for g in g0],
+        [shifted(p) for p in pyr1], [tuple(map(shifted, g)) for g in g1],
+        *fb_args[4:])
+    if not all(torch.equal(a, b) for a, b in zip(fb_shifted, fb_k)):
+        _fail("klt_fb_ncc differs on planes that are not 16-byte aligned")
+
+    def fused():
+        return klt_cuda.track_fb(*fb_args)
+
+    def three():
+        return (klt_cuda.track_pyramid(pyr0, g0, pyr1, pts, valid, win,
+                                       iters, eps),
+                klt_cuda.track_pyramid(*bwd),
+                klt_cuda.patch_ncc(pyr0[0], pyr1[0], pts, p_k, win))
+
+    turns = [_timed(fused, "klt_fb_ncc_kernel"),
+             _timed(three, "klt_pyramid_kernel", "patch_ncc_kernel"),
+             _timed(three, "klt_pyramid_kernel", "patch_ncc_kernel"),
+             _timed(fused, "klt_fb_ncc_kernel")]
+    t_fb = {k: (None if turns[0][k] is None or turns[3][k] is None
+                else 0.5 * (turns[0][k] + turns[3][k]))
+            for k in turns[0]}
+    t_three = {k: (None if turns[1][k] is None or turns[2][k] is None
+                   else 0.5 * (turns[1][k] + turns[2][k]))
+               for k in turns[1]}
+    ms_pfb = _call_ms(lambda: klt_cuda.track_fb_plain(*fb_args), reps=5)
+    # Bytes: per level, the union of the windows the two passes and the
+    # NCC need in each plane: the prev frame under the forward templates
+    # (live slots), the backward pass's tracked windows (slots live there)
+    # and, at level 0, the NCC window of every slot; the next frame
+    # likewise; the gradients under their pass's templates. Operations:
+    # both passes' setups and this run's iterations, the NCC statistics
+    # of every slot, and the level-0 template taps of slots whose pass
+    # does not run (the NCC still needs them).
+    fwd_st = klt_cuda.post_filter(p_p, ok_p, e_p, valid, pyr1[0].shape)
+    iters_bwd = []
+    p_b, _, _ = klt_cuda.track_pyramid_plain(
+        pyr1, g1, pyr0, p_p, fwd_st, win, iters, eps, init_flow=pts - p_p,
+        iters_run=iters_bwd)
+    n_bwd = int(fwd_st.sum())
+    fb_px = 0
+    for lvl in range(len(pyr0)):
+        s = 2.0 ** lvl
+        ncc_a = pts if lvl == 0 else pts[:0]
+        ncc_b = p_p if lvl == 0 else p_p[:0]
+        fb_px += _window_pixels(pyr0[lvl], torch.cat(
+            [pts[valid] / s, p_b[fwd_st] / s, ncc_a]), win)
+        fb_px += _window_pixels(pyr1[lvl], torch.cat(
+            [p_p[valid] / s, p_p[fwd_st] / s, ncc_b]), win)
+        fb_px += 2 * _window_pixels(pyr0[lvl], pts[valid] / s, win)
+        fb_px += 2 * _window_pixels(pyr1[lvl], p_p[fwd_st] / s, win)
+    area = win * win
+    b_fb = _bound(fb_px * f4 + M * (8 + 1) + M * (8 + 1 + 4 + 4),
+                  _klt_ops(iters_k1, [n_live] * len(pyr0), win)
+                  + _klt_ops(iters_bwd, [n_bwd] * len(pyr0), win)
+                  + M * area * (NCC_OPS - 2 * TAP_OPS)
+                  + (2 * M - n_live - n_bwd) * area * TAP_OPS)
 
     # K3 at the keyframe-insert shape (N = 512) and the attach shape
     # (N = 128): the words must equal the plain version's bit for bit.
@@ -342,8 +517,9 @@ def kernel_phase(cfg, device) -> list:
                   f"({n_diff} of {w_k.numel()} words)")
         # Only valid rows need their taps read and compared.
         k3[n] = dict(
-            ms=_time_ms(lambda: brief_cuda.extract_brief_words(*args)),
-            plain_ms=_time_ms(
+            **_timed(lambda: brief_cuda.extract_brief_words(*args),
+                     "brief_words_kernel"),
+            plain_ms=_call_ms(
                 lambda: brief_cuda.extract_brief_words_plain(*args)),
             **_bound(_brief_pixels(blurred, kp, kv, pattern) * f4
                      + n * (8 + 1) + pattern.numel() * 4
@@ -355,23 +531,34 @@ def kernel_phase(cfg, device) -> list:
     print(f"K1 klt_pyramid: flow err {flow_err:.3g} px, err err "
           f"{err_err:.3g}, ok agree {agree_frac:.4f} "
           f"({int(ok_k.sum())} tracked of {n_live} live); "
-          f"{ms_k1:.4f} ms vs plain {ms_p1:.4f} ms, bound "
+          f"{_ms_text(t_k1)} vs plain {ms_p1:.4f} ms, bound "
           f"{b_k1['bound_us']:.3f} us ({b_k1['bound_by']})")
     print(f"K4 klt_level: flow err {k4_err:.3g} px, ok identical; "
-          f"{ms_k4:.4f} ms vs plain {ms_p4:.4f} ms, bound "
+          f"{_ms_text(t_k4)} vs plain {ms_p4:.4f} ms, bound "
           f"{b_k4['bound_us']:.3f} us ({b_k4['bound_by']})")
-    print(f"K2 patch_ncc: err {ncc_err:.3g}; {ms_k2:.4f} ms vs plain "
+    print(f"K2 patch_ncc: err {ncc_err:.3g}; {_ms_text(t_k2)} vs plain "
           f"{ms_p2:.4f} ms, bound {b_k2['bound_us']:.3f} us "
           f"({b_k2['bound_by']})")
+    print(f"klt_fb_ncc: pts err {fb_pts_err:.3g} px, round-trip err "
+          f"{fb_rt_err:.3g} px, ncc err {fb_ncc_err:.3g}, status agree "
+          f"{fb_agree:.4f} ({int(fb_k[1].sum())} kept of {n_live} live); "
+          f"{_ms_text(t_fb)} vs plain {ms_pfb:.4f} ms, bound "
+          f"{b_fb['bound_us']:.3f} us ({b_fb['bound_by']}); in turns "
+          f"fused {turns[0]['ms']:.4f}, three launches {turns[1]['ms']:.4f}, "
+          f"{turns[2]['ms']:.4f}, fused {turns[3]['ms']:.4f} ms device "
+          f"(calls {turns[0]['call_ms']:.4f}, {turns[1]['call_ms']:.4f}, "
+          f"{turns[2]['call_ms']:.4f}, {turns[3]['call_ms']:.4f} ms)")
     for n, r in k3.items():
-        print(f"K3 brief_words N={n}: words identical; {r['ms']:.4f} ms vs "
+        print(f"K3 brief_words N={n}: words identical; {_ms_text(r)} vs "
               f"plain {r['plain_ms']:.4f} ms, bound {r['bound_us']:.3f} us "
               f"({r['bound_by']})")
 
-    def entry(name, source, replaces, err, ms, plain_ms, bound, **extra):
+    def entry(name, source, replaces, err, t, plain_ms, bound, **extra):
         return dict(name=name, route="cuda", source=source,
-                    replaces=replaces, launches=0, max_abs_err=err, ms=ms,
-                    plain_ms=plain_ms, bound_ms=bound["bound_ms"],
+                    replaces=replaces, launches=0, max_abs_err=err,
+                    ms=t["ms"], call_ms=t["call_ms"],
+                    profiler_ms=t["profiler_ms"], plain_ms=plain_ms,
+                    bound_ms=bound["bound_ms"],
                     bound_us=bound["bound_us"], bound_by=bound["bound_by"],
                     bound_bytes=bound["bytes"],
                     bound_operations=bound["operations"],
@@ -379,18 +566,27 @@ def kernel_phase(cfg, device) -> list:
 
     klt_src = "vins_tpu_torch/csrc/klt.cu"
     return [
+        entry("klt_fb_ncc", klt_src, "vins_tpu/ops/klt_pallas.py:281",
+              max(fb_pts_err, fb_ncc_err), t_fb, ms_pfb, b_fb,
+              also_replaces="vins_tpu/ops/klt_pallas.py:387",
+              status_agree=fb_agree, round_trip_err=fb_rt_err,
+              turns_ms=[t["ms"] for t in turns],
+              turns_call_ms=[t["call_ms"] for t in turns],
+              three_launches_ms=t_three["ms"],
+              three_launches_call_ms=t_three["call_ms"],
+              three_launches_profiler_ms=t_three["profiler_ms"]),
         entry("klt_pyramid", klt_src, "vins_tpu/ops/klt_pallas.py:281",
-              flow_err, ms_k1, ms_p1, b_k1),
+              flow_err, t_k1, ms_p1, b_k1, on_main_path=False),
         entry("patch_ncc", klt_src, "vins_tpu/ops/klt_pallas.py:387",
-              ncc_err, ms_k2, ms_p2, b_k2),
+              ncc_err, t_k2, ms_p2, b_k2, on_main_path=False),
         entry("brief_words", "vins_tpu_torch/csrc/brief.cu",
-              "vins_tpu/ops/klt_pallas.py:344", 0.0, k3[n_ins]["ms"],
+              "vins_tpu/ops/klt_pallas.py:344", 0.0, k3[n_ins],
               k3[n_ins]["plain_ms"], k3[n_ins],
-              ms_attach=k3[n_att]["ms"],
+              ms_attach=k3[n_att]["ms"], call_ms_attach=k3[n_att]["call_ms"],
               plain_ms_attach=k3[n_att]["plain_ms"],
               bound_ms_attach=k3[n_att]["bound_ms"]),
         entry("klt_level", klt_src, "vins_tpu/ops/klt_pallas.py:134",
-              k4_err, ms_k4, ms_p4, b_k4, on_main_path=False),
+              k4_err, t_k4, ms_p4, b_k4, on_main_path=False),
     ]
 
 
@@ -402,7 +598,8 @@ def _reset_counts() -> None:
 
 def _read_counts() -> dict:
     from vins_tpu_torch.ops import brief_cuda, klt_cuda
-    return {"klt_pyramid": klt_cuda.track_pyramid.launches,
+    return {"klt_fb_ncc": klt_cuda.track_fb.launches,
+            "klt_pyramid": klt_cuda.track_pyramid.launches,
             "patch_ncc": klt_cuda.patch_ncc.launches,
             "brief_words": brief_cuda.extract_brief_words.launches,
             "klt_level": klt_cuda.track_level.launches}
@@ -557,12 +754,13 @@ def slice_phase(cfg, device, use_loop: bool, traj: dict, n_frames: int,
                    t_drift=lc.t_drift.tolist())
     tracked = n_frames - 1          # frame 0 only detects
     if on_card:
-        if launches["klt_pyramid"] < 2 * tracked:
-            _fail(f"K1 launched {launches['klt_pyramid']} times for "
+        if launches["klt_fb_ncc"] != tracked:
+            _fail(f"klt_fb_ncc launched {launches['klt_fb_ncc']} times for "
                   f"{tracked} tracked frames")
-        if launches["patch_ncc"] < tracked:
-            _fail(f"K2 launched {launches['patch_ncc']} times for "
-                  f"{tracked} tracked frames")
+        if launches["klt_pyramid"] or launches["patch_ncc"]:
+            _fail(f"the standalone K1 and K2 launched "
+                  f"{launches['klt_pyramid']} and {launches['patch_ncc']} "
+                  f"times on the system path")
     if use_loop:
         st = res["loop_stats"]
         if st["hits"] < 1:

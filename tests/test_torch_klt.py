@@ -1,12 +1,14 @@
-"""Kernels K1 (pyramidal LK) and K2 (patch NCC) of vins_tpu_torch against
-the JAX package, on the CPU.
+"""Kernels K1 (pyramidal LK), K2 (patch NCC), K4 (one LK level) and the
+fused forward–backward–NCC tracking kernel of vins_tpu_torch against the
+JAX package, on the CPU.
 
 The port's CPU path is each kernel's plain PyTorch version
-(ops/klt_cuda.track_pyramid_plain, patch_ncc_plain). They are held against
-the Pallas kernels they replace, run in interpret mode
-(klt_pallas.track_pyramid_pallas, patch_ncc_pallas, track_level_pallas),
-at the main path's window (21), iteration count (10), early-exit eps
-(0.01) and pyramid depth (3), with border points and dead slots. With
+(ops/klt_cuda.track_pyramid_plain, patch_ncc_plain, track_fb_plain). They
+are held against the Pallas kernels they replace, run in interpret mode
+(klt_pallas.track_pyramid_pallas, patch_ncc_pallas, track_level_pallas,
+and the JAX package's TPU branch of klt.track_pyramid_fb that composes
+them), at the main path's window (21), iteration count (10), early-exit
+eps (0.01) and pyramid depth (3), with border points and dead slots. With
 eps = 0 the plain version also equals the JAX package's CPU (XLA) path.
 A 3-level pyramid at win 21 needs at least 128 rows at level 0: the
 Pallas patch read loads 32 rows on every level (klt_pallas.py:47-48).
@@ -186,6 +188,71 @@ def test_track_pyramid_fb_matches_jax(scene):
                                atol=2 * FLOW_TOL)
 
 
+def test_track_fb_plain_matches_tpu_branch(scene, monkeypatch):
+    """The fused kernel's plain version equals the JAX package's TPU
+    branch of track_pyramid_fb (klt.py:171-203: track_pyramid_pallas
+    forward, the post-filter of :147-154, the backward pass, then
+    patch_ncc_pallas and the gate of :203), run in interpret mode at
+    klt_eps = 0.01."""
+    s = scene
+    monkeypatch.setattr(j_klt, "_on_tpu", lambda: True)
+    with pltpu.force_tpu_interpret_mode():
+        ref = j_klt.track_pyramid_fb(
+            s["pj0"], s["pj1"], jnp.asarray(s["pts"]),
+            jnp.asarray(s["valid"]), FrontendConfig(klt_eps=EPS),
+            grads_prev=s["gj0"], grads_next=s["gj1"])
+    args = (s["pt0"], s["gt0"], s["pt1"], s["gt1"], _t(s["pts"]),
+            _t(s["valid"]), WIN, ITERS, EPS, 0.3, t_klt.NCC_MIN)
+    pts, status, err, ncc = klt_cuda.track_fb_plain(*args)
+    ok = np.asarray(ref.status)
+    assert np.array_equal(status.numpy(), ok)
+    assert ok.sum() >= 4
+    np.testing.assert_allclose(pts.numpy(), np.asarray(ref.pts),
+                               atol=FLOW_TOL)
+    np.testing.assert_allclose(err.numpy()[ok], np.asarray(ref.err)[ok],
+                               atol=2 * FLOW_TOL)
+    assert np.all(np.isfinite(ncc.numpy()))
+    # The dispatching wrapper takes the plain version for CPU tensors and
+    # counts no launch.
+    before = klt_cuda.track_fb.launches
+    out = klt_cuda.track_fb(*args)
+    for a, b in zip(out, (pts, status, err, ncc)):
+        assert torch.equal(a, b)
+    assert klt_cuda.track_fb.launches == before
+
+
+@pytest.mark.parametrize("given_grads", [True, False])
+def test_track_pyramid_fb_equals_old_composition(scene, given_grads):
+    """ops/klt.track_pyramid_fb through the fused wrapper equals, bit for
+    bit, the composition it ran before: K1 forward and backward through
+    ops/klt.track_pyramid (post-filters included), K2 on the forward
+    result, and the gate. Without gradients both compute them."""
+    s = scene
+    cfg = tc.FrontendConfig()
+    pts, valid = _t(s["pts"]), _t(s["valid"])
+    g0 = s["gt0"] if given_grads else None
+    g1 = s["gt1"] if given_grads else None
+    counts = lambda: (klt_cuda.track_fb.launches,
+                      klt_cuda.track_pyramid.launches,
+                      klt_cuda.patch_ncc.launches)
+    before = counts()
+    out = t_klt.track_pyramid_fb(s["pt0"], s["pt1"], pts, valid, cfg,
+                                 grads_prev=g0, grads_next=g1)
+    assert counts() == before
+    fwd = t_klt.track_pyramid(s["pt0"], s["pt1"], pts, valid, cfg,
+                              grads_prev=g0)
+    bwd = t_klt.track_pyramid(s["pt1"], s["pt0"], fwd.pts, fwd.status, cfg,
+                              init_flow=pts - fwd.pts, grads_prev=g1)
+    d = bwd.pts - pts
+    rt = torch.sqrt(torch.sum(d * d, -1))
+    ncc = klt_cuda.patch_ncc(s["pt0"][0], s["pt1"][0], pts, fwd.pts, WIN)
+    ok = fwd.status & bwd.status & (rt < 0.3) & (ncc > 0.5)
+    assert torch.equal(out.pts, fwd.pts)
+    assert torch.equal(out.status, ok)
+    assert torch.equal(out.err, rt)
+    assert int(ok.sum()) >= 4
+
+
 def test_k4_is_k1_at_one_level(scene):
     """K4 (track_level_pallas: one level, arbitrary per-slot guess) is K1's
     computation at L = 1: the plain version's single-level entry point
@@ -234,6 +301,9 @@ def test_wrappers_refuse_other_devices(scene):
                              s["pt1"][0], pts, pts, meta(_t(s["valid"])),
                              WIN, ITERS, EPS)
     with pytest.raises(ValueError, match="unsupported device"):
+        klt_cuda.track_fb(s["pt0"], s["gt0"], s["pt1"], s["gt1"], pts,
+                          meta(_t(s["valid"])), WIN, ITERS, EPS, 0.3, 0.5)
+    with pytest.raises(ValueError, match="unsupported device"):
         brief_cuda.extract_brief_words(s["pt0"][0], pts,
                                        meta(_t(s["valid"])),
                                        meta(torch.zeros((256, 4),
@@ -242,9 +312,10 @@ def test_wrappers_refuse_other_devices(scene):
 
 @pytest.mark.gpu
 def test_kernels_on_card(scene):
-    """On a CUDA card: K1, K2 and K4 launch, count their launches, and
-    agree with their plain versions on the same device (chip_smoke.py
-    runs the same check at the main path's full shapes)."""
+    """On a CUDA card: the fused tracking kernel, K1, K2 and K4 launch,
+    count their launches, and agree with their plain versions on the same
+    device (chip_smoke.py runs the same check at the main path's full
+    shapes)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     s = scene
@@ -279,6 +350,20 @@ def test_kernels_on_card(scene):
     assert torch.equal(ok4_k, ok4_p)
     both = ok4_k & ok4_p
     assert float((f_k - f_p)[both].abs().max()) <= FLOW_TOL
+    grads1 = [(cu(a), cu(b)) for a, b in s["gt1"]]
+    fb = (prev, grads, nxt, grads1, pts, valid, WIN, ITERS, EPS, 0.3, 0.5)
+    n_fb = klt_cuda.track_fb.launches
+    q_k, st_k, rt_k, ncc_fb_k = klt_cuda.track_fb(*fb)
+    torch.cuda.synchronize()
+    assert klt_cuda.track_fb.launches == n_fb + 1
+    assert klt_cuda.track_pyramid.launches == n1 + 1
+    assert klt_cuda.patch_ncc.launches == n2 + 1
+    q_p, st_p, rt_p, ncc_fb_p = klt_cuda.track_fb_plain(*fb)
+    assert torch.equal(st_k, st_p)
+    kept = st_k & st_p
+    assert float((q_k - q_p)[kept].abs().max()) <= FLOW_TOL
+    assert float((rt_k - rt_p)[kept].abs().max()) <= 2 * FLOW_TOL
+    assert float((ncc_fb_k - ncc_fb_p).abs().max()) <= NCC_TOL
 
 
 def test_port_frontend_config_defaults_reach_the_kernel():

@@ -1,10 +1,11 @@
 """Pyramidal Lucas–Kanade tracking, batched over feature slots (port of
 vins_tpu/ops/klt.py).
 
-Tracking always goes through kernel K1 (ops/klt_cuda.track_pyramid) and
-the NCC gate through K2 (ops/klt_cuda.patch_ncc) — their CUDA kernels on
-a CUDA tensor, their plain versions on a CPU tensor — so the port has
-the numerics of the JAX package's TPU path (early exit at klt_eps). With
+One-direction tracking goes through kernel K1 (ops/klt_cuda.track_pyramid)
+and forward–backward tracking with the NCC gate through the fused kernel
+(ops/klt_cuda.track_fb, one launch per frame) — their CUDA kernels on a
+CUDA tensor, their plain versions on a CPU tensor — so the port has the
+numerics of the JAX package's TPU path (early exit at klt_eps). With
 klt_eps = 0 they also equal the JAX package's CPU (XLA) path on live
 slots. Every post-filter of the reference is kept.
 """
@@ -17,6 +18,8 @@ import torch
 from ..config import FrontendConfig
 from . import klt_cuda
 from .image import sobel_gradients
+
+NCC_MIN = 0.5    # the NCC gate of vins_tpu/ops/klt.py:203
 
 
 class KltResult(NamedTuple):
@@ -37,12 +40,9 @@ def track_pyramid(pyr_prev: List[torch.Tensor],
     pts_next, ok, err = klt_cuda.track_pyramid(
         pyr_prev, grads, pyr_next, pts_prev, valid, cfg.klt_window,
         cfg.klt_iters, cfg.klt_eps, init_flow)
-    H, W = pyr_next[0].shape
-    border = 1.0
-    inb = ((pts_next[:, 0] >= border) & (pts_next[:, 0] < W - border)
-           & (pts_next[:, 1] >= border) & (pts_next[:, 1] < H - border))
-    ok = ok & inb & (err < 0.35) & torch.all(torch.isfinite(pts_next), -1)
-    return KltResult(pts=pts_next, status=ok & valid, err=err)
+    status = klt_cuda.post_filter(pts_next, ok, err, valid,
+                                  pyr_next[0].shape)
+    return KltResult(pts=pts_next, status=status, err=err)
 
 
 def track_pyramid_fb(pyr_prev: List[torch.Tensor],
@@ -52,15 +52,13 @@ def track_pyramid_fb(pyr_prev: List[torch.Tensor],
                      grads_next=None) -> KltResult:
     """Forward–backward checked tracking plus the zero-mean NCC gate:
     keep tracks whose round trip lands within fb_thresh px and whose
-    template/match NCC exceeds 0.5. err is the round-trip distance."""
-    fwd = track_pyramid(pyr_prev, pyr_next, pts_prev, valid, cfg,
-                        grads_prev=grads_prev)
-    bwd = track_pyramid(pyr_next, pyr_prev, fwd.pts, fwd.status, cfg,
-                        init_flow=pts_prev - fwd.pts,
-                        grads_prev=grads_next)
-    d = bwd.pts - pts_prev
-    rt = torch.sqrt(torch.sum(d * d, -1))
-    ncc = klt_cuda.patch_ncc(pyr_prev[0], pyr_next[0], pts_prev, fwd.pts,
-                             cfg.klt_window)
-    ok = fwd.status & bwd.status & (rt < fb_thresh) & (ncc > 0.5)
-    return KltResult(pts=fwd.pts, status=ok, err=rt)
+    template/match NCC exceeds NCC_MIN. err is the round-trip distance.
+    One call of klt_cuda.track_fb: on the card one kernel launch."""
+    if grads_prev is None:
+        grads_prev = [sobel_gradients(p) for p in pyr_prev]
+    if grads_next is None:
+        grads_next = [sobel_gradients(p) for p in pyr_next]
+    pts, status, rt, _ = klt_cuda.track_fb(
+        pyr_prev, grads_prev, pyr_next, grads_next, pts_prev, valid,
+        cfg.klt_window, cfg.klt_iters, cfg.klt_eps, fb_thresh, NCC_MIN)
+    return KltResult(pts=pts, status=status, err=rt)

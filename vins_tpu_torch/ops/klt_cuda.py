@@ -1,13 +1,17 @@
-"""Kernels K1 (pyramidal LK), K4 (one LK level) and K2 (patch NCC): CUDA
-wrappers and their plain PyTorch versions.
+"""Kernels K1 (pyramidal LK), K4 (one LK level), K2 (patch NCC) and the
+fused forward–backward–NCC tracking kernel: CUDA wrappers and their plain
+PyTorch versions.
 
 K1 replaces `_klt_pyramid_kernel` / `track_pyramid_pallas`
 (vins_tpu/ops/klt_pallas.py:191-326), K4 replaces `_klt_kernel` /
-`track_level_pallas` (klt_pallas.py:67-188) as K1's kernel at L = 1, and
-K2 replaces `_ncc_kernel` / `patch_ncc_pallas` (klt_pallas.py:368-411);
-the CUDA sources are in vins_tpu_torch/csrc/klt.cu. Dispatch is on the
-tensor's device: a CPU tensor takes the plain version, a CUDA tensor
-launches the kernel or raises. Nothing falls back.
+`track_level_pallas` (klt_pallas.py:67-188) as K1's code at L = 1, and
+K2 replaces `_ncc_kernel` / `patch_ncc_pallas` (klt_pallas.py:368-411).
+`track_fb` runs in one launch what vins_tpu/ops/klt.track_pyramid_fb
+(klt.py:157-204) does on the TPU with three: K1 forward, K1 backward and
+K2, with the post-filters and the gate. The CUDA sources are in
+vins_tpu_torch/csrc/klt.cu. Dispatch is on the tensor's device: a CPU
+tensor takes the plain version, a CUDA tensor launches the kernel or
+raises. Nothing falls back.
 
 The plain versions implement the KERNEL's semantics, not those of the
 JAX package's XLA path (vins_tpu/ops/klt._track_level, which always runs
@@ -17,8 +21,8 @@ slots skipping every level's loop, and the min-eigenvalue gate applied to
 batched loop over `iters` in which a slot freezes once it stops.
 
 Each CUDA wrapper counts its launches in a plain integer attribute
-(`track_pyramid.launches`, `track_level.launches`, `patch_ncc.launches`),
-incremented only where the kernel is launched.
+(`track_pyramid.launches`, `track_level.launches`, `patch_ncc.launches`,
+`track_fb.launches`), incremented only where the kernel is launched.
 """
 from __future__ import annotations
 
@@ -148,6 +152,20 @@ def track_level_plain(img_prev, gx, gy, img_next, pts_prev, guess, valid,
                                iters_run)
 
 
+def post_filter(pts_next: torch.Tensor, ok: torch.Tensor,
+                err: torch.Tensor, valid: torch.Tensor,
+                shape) -> torch.Tensor:
+    """The status of a tracking pass (vins_tpu/ops/klt.py:147-154): the
+    kernel's ok, in bounds with a 1 px border of an image of `shape`
+    [H, W], err < 0.35, finite, and valid."""
+    H, W = shape
+    border = 1.0
+    inb = ((pts_next[:, 0] >= border) & (pts_next[:, 0] < W - border)
+           & (pts_next[:, 1] >= border) & (pts_next[:, 1] < H - border))
+    ok = ok & inb & (err < 0.35) & torch.all(torch.isfinite(pts_next), -1)
+    return ok & valid
+
+
 def patch_ncc_plain(img_a: torch.Tensor, img_b: torch.Tensor,
                     pts_a: torch.Tensor, pts_b: torch.Tensor,
                     win: int) -> torch.Tensor:
@@ -161,6 +179,29 @@ def patch_ncc_plain(img_a: torch.Tensor, img_b: torch.Tensor,
     tb = tb - torch.sum(tb, -1, keepdim=True) / area
     return torch.sum(ta * tb, -1) * torch.rsqrt(
         torch.sum(ta * ta, -1) * torch.sum(tb * tb, -1) + 1e-12)
+
+
+def track_fb_plain(pyr_prev, grads_prev, pyr_next, grads_next,
+                   pts_prev: torch.Tensor, valid: torch.Tensor, win: int,
+                   iters: int, eps: float, fb_thresh: float,
+                   ncc_min: float):
+    """Plain version of the fused tracking kernel: K1 forward, its
+    post-filter, K1 backward from the forward result seeded with the
+    negated forward flow, its post-filter, K2 on the forward result and
+    the gate (vins_tpu/ops/klt.py:171-203). Returns (fwd_pts [M, 2],
+    status [M], err [M] = the round-trip distance, ncc [M])."""
+    p_f, ok_f, e_f = track_pyramid_plain(pyr_prev, grads_prev, pyr_next,
+                                         pts_prev, valid, win, iters, eps)
+    ok_f = post_filter(p_f, ok_f, e_f, valid, pyr_next[0].shape)
+    p_b, ok_b, e_b = track_pyramid_plain(pyr_next, grads_next, pyr_prev,
+                                         p_f, ok_f, win, iters, eps,
+                                         init_flow=pts_prev - p_f)
+    ok_b = post_filter(p_b, ok_b, e_b, ok_f, pyr_prev[0].shape)
+    d = p_b - pts_prev
+    rt = torch.sqrt(torch.sum(d * d, -1))
+    ncc = patch_ncc_plain(pyr_prev[0], pyr_next[0], pts_prev, p_f, win)
+    status = ok_f & ok_b & (rt < fb_thresh) & (ncc > ncc_min)
+    return p_f, status, rt, ncc
 
 
 # ---------------------------------------------------------------------------
@@ -185,12 +226,25 @@ def _stream_ptr(device) -> int:
 
 
 KERNEL_WIN = 21   # the window csrc/klt.cu is compiled for (klt_window)
+KERNEL_MAX_LEVELS = 4   # pyramid levels whose templates klt.cu stages
 
 
 def _check_win(win: int) -> None:
     if win != KERNEL_WIN:
         raise ValueError(f"the CUDA kernels are built for a {KERNEL_WIN}x"
                          f"{KERNEL_WIN} window, not {win}x{win}")
+
+
+def _check_levels(L: int) -> None:
+    if not 1 <= L <= KERNEL_MAX_LEVELS:
+        raise ValueError(f"the CUDA kernels take 1 to {KERNEL_MAX_LEVELS} "
+                         f"pyramid levels, not {L}")
+
+
+def _check_level_shape(lvl: int, H: int, W: int, win: int) -> None:
+    if H < win + 2 or W < win + 2:
+        raise ValueError(f"level {lvl} ({H}x{W}) is smaller than the "
+                         f"{win}x{win} window plus its bilinear border")
 
 
 def _track_pyramid_cuda(pyr_prev, grads, pyr_next, pts_prev, valid,
@@ -200,6 +254,7 @@ def _track_pyramid_cuda(pyr_prev, grads, pyr_next, pts_prev, valid,
     L = len(pyr_prev)
     f32 = torch.float32
     _check_win(win)
+    _check_levels(L)
     _check_tensor("pts_prev", pts_prev, (M, 2), f32, dev)
     _check_tensor("valid", valid, (M,), torch.bool, dev)
     if init_flow is not None:
@@ -207,9 +262,7 @@ def _track_pyramid_cuda(pyr_prev, grads, pyr_next, pts_prev, valid,
     planes, Hs, Ws = [], [], []
     for lvl in range(L):
         H, W = pyr_prev[lvl].shape
-        if H < win + 2 or W < win + 2:
-            raise ValueError(f"level {lvl} ({H}x{W}) is smaller than the "
-                             f"{win}x{win} window plus its bilinear border")
+        _check_level_shape(lvl, H, W, win)
         for name, x in (("prev", pyr_prev[lvl]), ("gx", grads[lvl][0]),
                         ("gy", grads[lvl][1]), ("next", pyr_next[lvl])):
             _check_tensor(f"{name}[{lvl}]", x, (H, W), f32, dev)
@@ -241,9 +294,7 @@ def _track_level_cuda(img_prev, gx, gy, img_next, pts_prev, guess, valid,
     H, W = img_prev.shape
     f32 = torch.float32
     _check_win(win)
-    if H < win + 2 or W < win + 2:
-        raise ValueError(f"level ({H}x{W}) is smaller than the {win}x{win} "
-                         "window plus its bilinear border")
+    _check_level_shape(0, H, W, win)
     for name, x in (("img_prev", img_prev), ("gx", gx), ("gy", gy),
                     ("img_next", img_next)):
         _check_tensor(name, x, (H, W), f32, dev)
@@ -268,9 +319,7 @@ def _patch_ncc_cuda(img_a, img_b, pts_a, pts_b, win):
     H, W = img_a.shape
     f32 = torch.float32
     _check_win(win)
-    if H < win + 2 or W < win + 2:
-        raise ValueError(f"image ({H}x{W}) is smaller than the {win}x{win}"
-                         " window plus its bilinear border")
+    _check_level_shape(0, H, W, win)
     _check_tensor("img_a", img_a, (H, W), f32, dev)
     _check_tensor("img_b", img_b, (H, W), f32, dev)
     _check_tensor("pts_a", pts_a, (M, 2), f32, dev)
@@ -281,6 +330,50 @@ def _patch_ncc_cuda(img_a, img_b, pts_a, pts_b, win):
         pts_b.data_ptr(), M, win, out.data_ptr(), _stream_ptr(dev))
     native.check(status, "vins_patch_ncc")
     return out
+
+
+def _track_fb_cuda(pyr_prev, grads_prev, pyr_next, grads_next, pts_prev,
+                   valid, win, iters, eps, fb_thresh, ncc_min):
+    dev = pts_prev.device
+    M = pts_prev.shape[0]
+    L = len(pyr_prev)
+    f32 = torch.float32
+    _check_win(win)
+    _check_levels(L)
+    for name, seq in (("grads_prev", grads_prev), ("pyr_next", pyr_next),
+                      ("grads_next", grads_next)):
+        if len(seq) != L:
+            raise ValueError(f"{name} has {len(seq)} levels, expected {L}")
+    _check_tensor("pts_prev", pts_prev, (M, 2), f32, dev)
+    _check_tensor("valid", valid, (M,), torch.bool, dev)
+    planes, Hs, Ws = [], [], []
+    for lvl in range(L):
+        H, W = pyr_prev[lvl].shape
+        _check_level_shape(lvl, H, W, win)
+        for name, x in (("prev", pyr_prev[lvl]),
+                        ("gx_prev", grads_prev[lvl][0]),
+                        ("gy_prev", grads_prev[lvl][1]),
+                        ("next", pyr_next[lvl]),
+                        ("gx_next", grads_next[lvl][0]),
+                        ("gy_next", grads_next[lvl][1])):
+            _check_tensor(f"{name}[{lvl}]", x, (H, W), f32, dev)
+            planes.append(x.data_ptr())
+        Hs.append(H)
+        Ws.append(W)
+    fwd_pts = torch.empty((M, 2), dtype=f32, device=dev)
+    status = torch.empty((M,), dtype=torch.bool, device=dev)
+    err = torch.empty((M,), dtype=f32, device=dev)
+    ncc = torch.empty((M,), dtype=f32, device=dev)
+    c_planes = (ctypes.c_void_p * len(planes))(*planes)
+    c_H = (ctypes.c_int * L)(*Hs)
+    c_W = (ctypes.c_int * L)(*Ws)
+    rc = native.library().vins_klt_fb_ncc(
+        pts_prev.data_ptr(), valid.data_ptr(), ctypes.addressof(c_planes),
+        ctypes.addressof(c_H), ctypes.addressof(c_W), L, M, win, iters,
+        eps * eps, fb_thresh, ncc_min, fwd_pts.data_ptr(),
+        status.data_ptr(), err.data_ptr(), ncc.data_ptr(), _stream_ptr(dev))
+    native.check(rc, "vins_klt_fb_ncc")
+    return fwd_pts, status, err, ncc
 
 
 def track_pyramid(pyr_prev: List[torch.Tensor], grads, pyr_next,
@@ -337,12 +430,37 @@ def patch_ncc(img_a: torch.Tensor, img_b: torch.Tensor,
     return patch_ncc_plain(img_a, img_b, pts_a, pts_b, win)
 
 
+def track_fb(pyr_prev: List[torch.Tensor], grads_prev, pyr_next,
+             grads_next, pts_prev: torch.Tensor, valid: torch.Tensor,
+             win: int, iters: int, eps: float, fb_thresh: float,
+             ncc_min: float):
+    """Forward–backward tracking with the NCC gate in one launch.
+
+    pyr_prev/pyr_next: per-level [H, W] images (finest first); grads_prev/
+    grads_next: their per-level (gx, gy); pts_prev: [M, 2] level-0 points;
+    valid: [M] bool. Returns (fwd_pts [M, 2], status [M], err [M] = the
+    round-trip distance, ncc [M]) as track_fb_plain."""
+    if pts_prev.is_cuda:
+        out = _track_fb_cuda(pyr_prev, grads_prev, pyr_next, grads_next,
+                             pts_prev, valid, win, iters, eps, fb_thresh,
+                             ncc_min)
+        track_fb.launches += 1
+        return out
+    if pts_prev.device.type != "cpu":
+        raise ValueError(f"track_fb: unsupported device {pts_prev.device}")
+    return track_fb_plain(pyr_prev, grads_prev, pyr_next, grads_next,
+                          pts_prev, valid, win, iters, eps, fb_thresh,
+                          ncc_min)
+
+
 track_pyramid.launches = 0
 track_level.launches = 0
 patch_ncc.launches = 0
+track_fb.launches = 0
 
 
 def reset_launch_counts() -> None:
     track_pyramid.launches = 0
     track_level.launches = 0
     patch_ncc.launches = 0
+    track_fb.launches = 0

@@ -42,6 +42,12 @@ _ARGTYPES = {
     "vins_klt_level": [_VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int, _VP,
                        _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_float, _VP, _VP, _VP, _VP],
+    # pts, valid, planes, Hs, Ws, L, M, win, iters, eps2, fb_thresh,
+    # ncc_min, fwd_pts, status, err, ncc, stream
+    "vins_klt_fb_ncc": [_VP, _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                        ctypes.c_float, ctypes.c_float, _VP, _VP, _VP, _VP,
+                        _VP],
     # img, H, W, pts, valid, pattern, N, words, stream
     "vins_brief_words": [_VP, ctypes.c_int, ctypes.c_int, _VP, _VP, _VP,
                          ctypes.c_int, _VP, _VP],
