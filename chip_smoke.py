@@ -21,21 +21,28 @@ Phases (any failure exits non-zero, and no result line is printed):
                 backward, K2) on the same inputs,
                 K1 pyramidal LK and K2 patch NCC at the same shapes,
                 K4 one LK level (level 0 of the same shapes),
-                K3 BRIEF words (N = 512 keyframe keypoints and N = 128
-                tracked features on a blurred 640x480 frame, border
-                keypoints and invalid rows included; words identical);
+                K3 BRIEF words from the raw 640x480 frame, the blur fused
+                in (N = 512 keyframe keypoints and N = 128 tracked
+                features, border keypoints and invalid rows included;
+                words identical, again on a frame that is not 16-byte
+                aligned), timed in turns against the route it replaces
+                (gaussian_blur, then K3's blurred-input entry), and that
+                blurred-input entry alone;
   4. loop     — the default system, VinsSystem(cfg) with loop closure on,
                 at default_config() on bench.py's revisiting circle
                 (w = 0.7, bob 0.15): ground-truth bootstrap, then 720
                 frames (2.7 laps) in blocks of 48; fails without finite
                 poses, a verified loop hit, a pose-graph run, a ride-time
-                attach and a K3 launch per inserted keyframe;
+                attach and one fused K3 launch per keyframe insert and
+                attach try (the blurred-input entry never);
   5. loop-off — VinsSystem(cfg, use_loop=False) over 192 frames of the
                 slower w = 0.35 circle, checked for finite poses and an
                 aligned ATE under 0.15 m.
 Kernel launch counts are set to 0 just before each system run and read
 just after it; every kernel on a run's path must have launched there
-(klt_fb_ncc once per tracked frame, the standalone K1 and K2 never).
+(klt_fb_ncc once per tracked frame, the standalone K1 and K2 never;
+in the loop-on run K3 from the raw frame once per keyframe insert and
+ride-time attach try, K3's blurred-input entry never).
 Each system run also counts its synchronizing CUDA calls block by block
 (torch.cuda.set_sync_debug_mode("warn")). A kernel's bound counts the
 bytes its inputs need (the pixels under the windows or taps it reads,
@@ -90,6 +97,8 @@ TAP_OPS = 9
 KLT_SETUP_OPS = 3 * TAP_OPS + 6
 KLT_ITER_OPS = TAP_OPS + 7
 NCC_OPS = 2 * TAP_OPS + 8
+# One output of a 5-tap blur pass: 5 multiplies and 4 adds.
+BLUR_OPS = 9
 
 
 def _fail(msg: str) -> None:
@@ -166,9 +175,15 @@ def _profiled_ms(fn, kernels, reps: int = 20):
 
 def _timed(fn, *kernels: str) -> dict:
     """Device time, profiled device time and eager call time of one call
-    of fn, which launches the named kernels."""
+    of fn, which launches the named kernels ("" names them all)."""
     return dict(ms=_device_ms(fn), profiler_ms=_profiled_ms(fn, kernels),
                 call_ms=_call_ms(fn))
+
+
+def _mean_timed(a: dict, b: dict) -> dict:
+    """The mean of two _timed results (None where either is None)."""
+    return {k: (None if a[k] is None or b[k] is None else 0.5 * (a[k] + b[k]))
+            for k in a}
 
 
 def _ms_text(t: dict) -> str:
@@ -206,17 +221,22 @@ def _klt_ops(iters_run, live_per_level, win: int) -> float:
                      for it, n_live in zip(iters_run, live_per_level)))
 
 
-def _pixels_read(shape, x0, y0, offs) -> int:
-    """Distinct pixels of an [H, W] plane at (x0 + dx, y0 + dy) for every
-    base (x0, y0) [n] and offset (dx, dy) in offs [k, 2]: what a kernel
-    that reads those pixels must move, overlaps counted once."""
+def _pixels_mask(shape, x0, y0, offs):
+    """[H, W] bool: the pixels at (x0 + dx, y0 + dy) for every base
+    (x0, y0) [n] and offset (dx, dy) in offs [k, 2]."""
     import torch
     H, W = shape
     mask = torch.zeros(H * W, dtype=torch.bool, device=x0.device)
     idx = ((y0[:, None] + offs[None, :, 1]) * W
            + (x0[:, None] + offs[None, :, 0]))
     mask[idx.reshape(-1)] = True
-    return int(mask.sum())
+    return mask.view(H, W)
+
+
+def _pixels_read(shape, x0, y0, offs) -> int:
+    """Distinct pixels of an [H, W] plane at (x0 + dx, y0 + dy): what a
+    kernel that reads those pixels must move, overlaps counted once."""
+    return int(_pixels_mask(shape, x0, y0, offs).sum())
 
 
 def _window_pixels(plane, centers, win: int) -> int:
@@ -234,23 +254,54 @@ def _window_pixels(plane, centers, win: int) -> int:
     return _pixels_read((H, W), corner[0], corner[1], offs)
 
 
-def _brief_pixels(blurred, pts, valid, pattern) -> int:
-    """Distinct pixels that the taps of the valid keypoints read: the 2x2
-    neighbourhood of each of the 512 taps inside the clamped 49x49 patch
-    (brief_cuda.extract_brief_words_plain)."""
+def _brief_mask(shape, pts, valid, pattern):
+    """[H, W] bool: the blurred pixels that the taps of the valid
+    keypoints read, the 2x2 neighbourhood of each of the 512 taps inside
+    the clamped 49x49 patch (brief_cuda.extract_brief_words_plain)."""
     import torch
     from vins_tpu_torch.ops import brief_cuda
-    H, W = blurred.shape
+    H, W = shape
     half, pw = brief_cuda.PATCH_HALF, brief_cuda.PATCH_WIN
     base = [torch.floor(torch.clamp(torch.nan_to_num(c - half, nan=0.0), 0.0,
                                     n - pw - 1.001)).long()[valid] + half
             for c, n in ((pts[:, 0], W), (pts[:, 1], H))]
     taps = torch.cat([pattern[:, :2], pattern[:, 2:]]).long()
-    quad = torch.tensor([[0, 0], [1, 0], [0, 1], [1, 1]],
-                        device=blurred.device)
+    quad = torch.tensor([[0, 0], [1, 0], [0, 1], [1, 1]], device=pts.device)
     offs = (taps[:, None, :] + quad[None]).reshape(-1, 2)
-    return _pixels_read((H, W), base[0], base[1], offs)
+    return _pixels_mask((H, W), base[0], base[1], offs)
 
+
+def _brief_pixels(blurred, pts, valid, pattern) -> int:
+    """Distinct blurred pixels that the taps of the valid keypoints read."""
+    return int(_brief_mask(blurred.shape, pts, valid, pattern).sum())
+
+
+def _brief_raw_work(raw, pts, valid, pattern) -> dict:
+    """What BRIEF from the raw frame needs, each value once: the blurred
+    pixels under the taps of the valid keypoints, the vertical-pass values
+    the horizontal pass needs for them, and the raw pixels those need,
+    both through the 5-tap footprint with reflect-101 at the borders
+    (image._reflect_index)."""
+    import torch
+    from vins_tpu_torch.ops import brief_cuda
+    H, W = raw.shape
+    rad = brief_cuda.BLUR_TAPS // 2
+
+    def reflect(j, n):
+        j = j.abs()
+        return torch.where(j >= n, 2 * n - 2 - j, j)
+
+    blur = _brief_mask(raw.shape, pts, valid, pattern)
+    vert = torch.zeros_like(blur)
+    need = torch.zeros_like(blur)
+    r, c = torch.nonzero(blur, as_tuple=True)
+    for d in range(-rad, rad + 1):
+        vert[r, reflect(c + d, W)] = True
+    r, c = torch.nonzero(vert, as_tuple=True)
+    for d in range(-rad, rad + 1):
+        need[reflect(r + d, H), c] = True
+    return dict(raw_px=int(need.sum()), vert_px=int(vert.sum()),
+                blur_px=int(blur.sum()))
 
 def frame_pair(cfg, device):
     """Two consecutive rendered frames of the loop-off trajectory, the raw
@@ -289,9 +340,9 @@ def frame_pair(cfg, device):
 
 
 def brief_inputs(raw, n: int, device):
-    """The blurred frame extract_brief reads and n keypoints: FAST corners
-    of the raw frame, 8 of them moved within 25 px of the borders, a third
-    of the rows invalid."""
+    """The frame blurred as K3's blurred-input entry reads it, and n
+    keypoints: FAST corners of the raw frame, 8 of them moved within 25 px
+    of the four borders, a third of the rows invalid."""
     import torch
     from vins_tpu_torch.ops import corners, image
 
@@ -314,7 +365,7 @@ def brief_inputs(raw, n: int, device):
 
 def kernel_phase(cfg, device) -> list:
     import torch
-    from vins_tpu_torch.ops import brief, brief_cuda, klt, klt_cuda
+    from vins_tpu_torch.ops import brief, brief_cuda, image, klt, klt_cuda
 
     fe = cfg.frontend
     win, iters, eps = fe.klt_window, fe.klt_iters, fe.klt_eps
@@ -462,12 +513,8 @@ def kernel_phase(cfg, device) -> list:
              _timed(three, "klt_pyramid_kernel", "patch_ncc_kernel"),
              _timed(three, "klt_pyramid_kernel", "patch_ncc_kernel"),
              _timed(fused, "klt_fb_ncc_kernel")]
-    t_fb = {k: (None if turns[0][k] is None or turns[3][k] is None
-                else 0.5 * (turns[0][k] + turns[3][k]))
-            for k in turns[0]}
-    t_three = {k: (None if turns[1][k] is None or turns[2][k] is None
-                   else 0.5 * (turns[1][k] + turns[2][k]))
-               for k in turns[1]}
+    t_fb = _mean_timed(turns[0], turns[3])
+    t_three = _mean_timed(turns[1], turns[2])
     ms_pfb = _call_ms(lambda: klt_cuda.track_fb_plain(*fb_args), reps=5)
     # Bytes: per level, the union of the windows the two passes and the
     # NCC need in each plane: the prev frame under the forward templates
@@ -502,19 +549,66 @@ def kernel_phase(cfg, device) -> list:
                   + (2 * M - n_live - n_bwd) * area * TAP_OPS)
 
     # K3 at the keyframe-insert shape (N = 512) and the attach shape
-    # (N = 128): the words must equal the plain version's bit for bit.
+    # (N = 128). The raw-frame entry that extract_brief calls must give the
+    # words of its plain version bit for bit, on the raw frame and on a
+    # copy that is not 16-byte aligned, and the words of the route it
+    # replaced (gaussian_blur, then the blurred-input entry); the
+    # blurred-input entry those of its own plain version. Then the two
+    # routes are timed in turns on the same frame and keypoints. The
+    # checks run the blur first, so _reflect_index's cache holds its
+    # indices before any graph capture.
     pattern = brief.pattern_tensor(device)
-    k3 = {}
+    taps = image.gaussian_taps(2.0)
+    raw_shifted = shifted(raw)
+    k3, k3r = {}, {}
     for n in (cfg.loop.max_kf_features, fe.max_features):
         blurred, kp, kv = brief_inputs(raw, n, device)
         args = (blurred, kp, kv, pattern)
-        w_k = brief_cuda.extract_brief_words(*args)
-        w_p = brief_cuda.extract_brief_words_plain(*args)
+
+        def fused(img=raw):
+            return brief_cuda.extract_brief_raw(img, kp, kv, pattern, taps)
+
+        def fused_plain(img=raw):
+            return brief_cuda.extract_brief_raw_plain(img, kp, kv, pattern,
+                                                      taps)
+
+        def blur_words():
+            return brief_cuda.extract_brief_words(
+                image.gaussian_blur(raw, 2.0).contiguous(), kp, kv, pattern)
+
+        checks = (
+            ("K3 against its plain version",
+             brief_cuda.extract_brief_words(*args),
+             brief_cuda.extract_brief_words_plain(*args)),
+            ("K3 from the raw frame against its plain version", fused(),
+             fused_plain()),
+            ("K3 from a raw frame not 16-byte aligned against its plain "
+             "version", fused(raw_shifted), fused_plain(raw_shifted)),
+            ("K3 from the raw frame against gaussian_blur + K3", fused(),
+             blur_words()))
         torch.cuda.synchronize()
-        n_diff = int((w_k != w_p).sum())
-        if n_diff:
-            _fail(f"K3 words differ from the plain version at N = {n} "
-                  f"({n_diff} of {w_k.numel()} words)")
+        for what, w_k, w_p in checks:
+            n_diff = int((w_k != w_p).sum())
+            if n_diff:
+                _fail(f"{what}: {n_diff} of {w_k.numel()} words differ at "
+                      f"N = {n}")
+        k3_turns = [_timed(fused, "brief_words_kernel"),
+                    _timed(blur_words, ""), _timed(blur_words, ""),
+                    _timed(fused, "brief_words_kernel")]
+        # The raw pixels the taps need through the blur's footprint, the
+        # two passes' outputs they need (BLUR_OPS each) and the taps.
+        work = _brief_raw_work(raw, kp, kv, pattern)
+        k3r[n] = dict(
+            **_mean_timed(k3_turns[0], k3_turns[3]),
+            plain_ms=_call_ms(fused_plain),
+            blur_words=_mean_timed(k3_turns[1], k3_turns[2]),
+            turns=k3_turns,
+            work=work,
+            **_bound(work["raw_px"] * f4 + n * (8 + 1) + pattern.numel() * 4
+                     + len(taps) * 4 + n * brief_cuda.BRIEF_WORDS * 4,
+                     BLUR_OPS * (work["vert_px"] + work["blur_px"])
+                     + int(kv.sum()) * brief_cuda.BRIEF_BITS
+                     * (2 * TAP_OPS + 1)))
         # Only valid rows need their taps read and compared.
         k3[n] = dict(
             **_timed(lambda: brief_cuda.extract_brief_words(*args),
@@ -548,6 +642,17 @@ def kernel_phase(cfg, device) -> list:
           f"{turns[2]['ms']:.4f}, fused {turns[3]['ms']:.4f} ms device "
           f"(calls {turns[0]['call_ms']:.4f}, {turns[1]['call_ms']:.4f}, "
           f"{turns[2]['call_ms']:.4f}, {turns[3]['call_ms']:.4f} ms)")
+    for n, r in k3r.items():
+        tr, bw = r["turns"], r["blur_words"]
+        print(f"K3 brief_raw_words N={n}: words identical (aligned, "
+              f"misaligned, and to gaussian_blur + K3); {_ms_text(r)} vs "
+              f"plain {r['plain_ms']:.4f} ms, bound {r['bound_us']:.3f} us "
+              f"({r['bound_by']}; {r['work']}); gaussian_blur + K3: "
+              f"{_ms_text(bw)}; in turns fused {tr[0]['ms']:.4f}, blur + K3 "
+              f"{tr[1]['ms']:.4f}, {tr[2]['ms']:.4f}, fused {tr[3]['ms']:.4f} "
+              f"ms device (calls {tr[0]['call_ms']:.4f}, "
+              f"{tr[1]['call_ms']:.4f}, {tr[2]['call_ms']:.4f}, "
+              f"{tr[3]['call_ms']:.4f} ms)")
     for n, r in k3.items():
         print(f"K3 brief_words N={n}: words identical; {_ms_text(r)} vs "
               f"plain {r['plain_ms']:.4f} ms, bound {r['bound_us']:.3f} us "
@@ -565,6 +670,8 @@ def kernel_phase(cfg, device) -> list:
                     library_ms=None, **extra)
 
     klt_src = "vins_tpu_torch/csrc/klt.cu"
+    brief_src = "vins_tpu_torch/csrc/brief.cu"
+    ins, att = k3r[n_ins], k3r[n_att]
     return [
         entry("klt_fb_ncc", klt_src, "vins_tpu/ops/klt_pallas.py:281",
               max(fb_pts_err, fb_ncc_err), t_fb, ms_pfb, b_fb,
@@ -579,9 +686,29 @@ def kernel_phase(cfg, device) -> list:
               flow_err, t_k1, ms_p1, b_k1, on_main_path=False),
         entry("patch_ncc", klt_src, "vins_tpu/ops/klt_pallas.py:387",
               ncc_err, t_k2, ms_p2, b_k2, on_main_path=False),
-        entry("brief_words", "vins_tpu_torch/csrc/brief.cu",
-              "vins_tpu/ops/klt_pallas.py:344", 0.0, k3[n_ins],
-              k3[n_ins]["plain_ms"], k3[n_ins],
+        entry("brief_raw_words", brief_src, "vins_tpu/ops/klt_pallas.py:344",
+              0.0, ins, ins["plain_ms"], ins,
+              also_replaces="vins_tpu/ops/image.py:70",
+              blur_then_words_ms=ins["blur_words"]["ms"],
+              blur_then_words_profiler_ms=ins["blur_words"]["profiler_ms"],
+              blur_then_words_call_ms=ins["blur_words"]["call_ms"],
+              turns_ms=[t["ms"] for t in ins["turns"]],
+              turns_call_ms=[t["call_ms"] for t in ins["turns"]],
+              work=ins["work"],
+              ms_attach=att["ms"], profiler_ms_attach=att["profiler_ms"],
+              call_ms_attach=att["call_ms"], plain_ms_attach=att["plain_ms"],
+              bound_ms_attach=att["bound_ms"],
+              bound_by_attach=att["bound_by"],
+              blur_then_words_ms_attach=att["blur_words"]["ms"],
+              blur_then_words_profiler_ms_attach=att["blur_words"][
+                  "profiler_ms"],
+              blur_then_words_call_ms_attach=att["blur_words"]["call_ms"],
+              turns_ms_attach=[t["ms"] for t in att["turns"]],
+              turns_call_ms_attach=[t["call_ms"] for t in att["turns"]],
+              work_attach=att["work"]),
+        entry("brief_words", brief_src, "vins_tpu/ops/klt_pallas.py:344",
+              0.0, k3[n_ins], k3[n_ins]["plain_ms"], k3[n_ins],
+              on_main_path=False,
               ms_attach=k3[n_att]["ms"], call_ms_attach=k3[n_att]["call_ms"],
               plain_ms_attach=k3[n_att]["plain_ms"],
               bound_ms_attach=k3[n_att]["bound_ms"]),
@@ -601,6 +728,7 @@ def _read_counts() -> dict:
     return {"klt_fb_ncc": klt_cuda.track_fb.launches,
             "klt_pyramid": klt_cuda.track_pyramid.launches,
             "patch_ncc": klt_cuda.patch_ncc.launches,
+            "brief_raw_words": brief_cuda.extract_brief_raw.launches,
             "brief_words": brief_cuda.extract_brief_words.launches,
             "klt_level": klt_cuda.track_level.launches}
 
@@ -684,6 +812,7 @@ def slice_phase(cfg, device, use_loop: bool, traj: dict, n_frames: int,
     on any device (the CPU takes the kernels' plain versions, and launch
     and sync counts stay 0 there)."""
     import torch
+    from vins_tpu_torch import stream as stream_mod
     from vins_tpu_torch.io import synthetic
     from vins_tpu_torch.pipeline import VinsSystem
 
@@ -702,12 +831,25 @@ def slice_phase(cfg, device, use_loop: bool, traj: dict, n_frames: int,
 
     sys_ = VinsSystem(cfg, ext=seq.ext, device=device, use_loop=use_loop,
                       initializer=synthetic.ground_truth_initializer(seq, cfg))
+    # Each ride-time attach try extracts BRIEF once: count the tries.
+    attach = stream_mod._attach_loop
+    attach_tries = 0
+
+    def counted_attach(*args, **kwargs):
+        nonlocal attach_tries
+        attach_tries += 1
+        return attach(*args, **kwargs)
+
+    stream_mod._attach_loop = counted_attach
     _reset_counts()
     t0 = time.perf_counter()
-    outs, segments = _stream_counting_syncs(
-        sys_, lambda: sys_.process_stream(imgs, seq.chunks, block=block,
-                                          ts=ts), on_card)
-    sync()
+    try:
+        outs, segments = _stream_counting_syncs(
+            sys_, lambda: sys_.process_stream(imgs, seq.chunks, block=block,
+                                              ts=ts), on_card)
+        sync()
+    finally:
+        stream_mod._attach_loop = attach
     wall = time.perf_counter() - t0
     launches = _read_counts()
 
@@ -743,7 +885,8 @@ def slice_phase(cfg, device, use_loop: bool, traj: dict, n_frames: int,
         keyframe_syncs_per_block=((sys_.timings["host_syncs"]
                                    - sys_.timings["blocks"])
                                   / max(sys_.timings["blocks"], 1)),
-        launches=launches, syncs=_sync_summary(segments),
+        launches=launches, attach_tries=attach_tries,
+        syncs=_sync_summary(segments),
         sync_segments=segments)
     if use_loop:
         lc = sys_.loop
@@ -769,10 +912,15 @@ def slice_phase(cfg, device, use_loop: bool, traj: dict, n_frames: int,
             _fail("no pose-graph run")
         if st["good_frames"] < 1:
             _fail("no ride-time attach (no frame with PACK_LGOOD)")
-        if on_card and (res["keyframes_inserted"] < 1 or launches[
-                "brief_words"] < res["keyframes_inserted"]):
-            _fail(f"K3 launched {launches['brief_words']} times for "
-                  f"{res['keyframes_inserted']} inserted keyframes")
+        n_brief = res["keyframes_inserted"] + attach_tries
+        if on_card and (res["keyframes_inserted"] < 1
+                        or launches["brief_raw_words"] != n_brief
+                        or launches["brief_words"]):
+            _fail(f"K3 from the raw frame launched "
+                  f"{launches['brief_raw_words']} times for "
+                  f"{res['keyframes_inserted']} keyframe inserts and "
+                  f"{attach_tries} attach tries, the blurred-input entry "
+                  f"{launches['brief_words']} times")
     elif ate >= ATE_MAX:
         _fail(f"aligned ATE RMSE {ate:.4f} m >= {ATE_MAX} m")
     return res
@@ -793,8 +941,10 @@ def _report_run(tag: str, run: dict, card: str) -> None:
                  f"with PACK_LGOOD), {st['retired']} retired, "
                  f"{run['pose_graph_runs']} pose-graph runs, "
                  f"{run['keyframes_inserted']} keyframes inserted "
-                 f"({run['keyframes_in_db']} in the DB), K3 launched "
-                 f"{run['launches']['brief_words']} times")
+                 f"({run['keyframes_in_db']} in the DB), "
+                 f"{run['attach_tries']} attach tries, K3 from the raw "
+                 f"frame launched {run['launches']['brief_raw_words']} "
+                 f"times")
     sy = run["syncs"]
     line += (f"; {run['system_frames_per_s']:.2f} frames/s end to end, "
              f"{run['block_frames_per_s']:.2f} frames/s in block mode, "

@@ -8,6 +8,9 @@ clamps each tap alone instead; the two agree inside the border. So the
 port's words are held bit for bit against the Pallas patch kernel in
 interpret mode composed with the TPU branch's one-hot product at every
 keypoint, and against the JAX CPU branch for keypoints inside the border.
+From the raw frame, extract_brief runs the kernel's raw-frame entry
+(the blur fused in); its plain version is held against the JAX TPU
+branch from the same raw frame.
 """
 import jax
 import jax.numpy as jnp
@@ -27,6 +30,7 @@ from vins_tpu_torch import interop
 from vins_tpu_torch.ops import brief as t_brief
 from vins_tpu_torch.ops import brief_cuda
 from vins_tpu_torch.ops import corners as t_corners
+from vins_tpu_torch.ops import image as t_img
 
 torch.set_num_threads(1)
 
@@ -149,6 +153,92 @@ def test_extract_brief_from_a_rendered_frame_matches_jax():
     assert n_diff <= 1e-3 * inb.sum() * 256, n_diff
 
 
+def test_gaussian_taps_are_the_blur_taps():
+    """gaussian_taps(2.0, 2) are the float32 taps gaussian_blur computed
+    inline before they were factored out, and the interior row of the
+    JAX band matrix that vins_tpu.ops.image.gaussian_blur multiplies by."""
+    x = np.arange(-2, 3, dtype=np.float64)
+    k = np.exp(-0.5 * (x / 2.0) ** 2)
+    k = k / np.sum(k)
+    before = tuple(float(np.float32(v)) for v in k)
+    taps = t_img.gaussian_taps(2.0, 2)
+    assert taps == before
+    band = j_img._band_np(16, tuple(float(v) for v in k))
+    np.testing.assert_array_equal(np.asarray(taps, np.float32), band[8, 6:11])
+
+
+def test_extract_brief_is_blur_then_words_bit_for_bit():
+    """On the CPU, extract_brief (the raw-frame entry's plain version)
+    gives the words of gaussian_blur(raw, 2.0) followed by
+    extract_brief_words_plain, bit for bit, border keypoints and invalid
+    rows included."""
+    raw, _, pts, valid = _scene(11)
+    r, p, v = (torch.as_tensor(raw), torch.as_tensor(pts),
+               torch.as_tensor(valid))
+    got = t_brief.extract_brief(r, p, v)
+    ref = brief_cuda.extract_brief_words_plain(
+        t_img.gaussian_blur(r, 2.0), p, v, t_brief.pattern_tensor(CPU))
+    assert got.dtype == torch.int32 and got.shape == (N, 8)
+    assert torch.equal(got, ref)
+    assert torch.equal(got, brief_cuda.extract_brief_raw_plain(
+        r, p, v, t_brief.pattern_tensor(CPU), t_img.gaussian_taps(2.0)))
+
+
+def test_extract_brief_raw_matches_tpu_branch_from_raw():
+    """From a raw rendered frame, the raw-frame entry's plain version
+    against the JAX package's TPU branch composed on the CPU: the band-
+    matmul blur, extract_patches_pallas in interpret mode, the one-hot
+    product at HIGHEST precision, _pack_bits. Border keypoints (all four
+    borders and corners) and invalid rows included. The band-matmul blur
+    and the port's gather blur round differently in the last bit, also
+    where two reflect-101 taps coincide at a border, which can flip an
+    exact near-tie: at most 0.1% of the valid keypoints' bits may differ
+    (measured: 0 of 10240, 40 valid keypoints)."""
+    _, imgs = render_cached(CFG, n_frames=2, seed=4, frame_dt=1.0 / 30.0,
+                            traj_kwargs=dict(w=0.7, bob=0.15),
+                            imu_per_frame=2)
+    raw = np.asarray(imgs[1], np.float32)
+    Hr, Wr = raw.shape
+    pick = j_corners.select_corners_grid(
+        j_corners.fast_score(jnp.asarray(raw)),
+        jnp.zeros((Hr // 8, Wr // 8), bool), 48, 8)
+    pts = np.array(pick.pts, np.float32)
+    pts[:8] = [[0, 0], [Wr - 1, Hr - 1], [1.5, Hr - 2.25], [Wr - 3, 0.75],
+               [24.5, Hr / 2], [Wr / 2, 2.5], [Wr - 1.25, 130.6],
+               [Wr / 3, Hr - 24.9]]
+    valid = np.asarray(pick.valid).copy()
+    valid[:8] = True
+    valid[8::5] = False
+    n = pts.shape[0]
+    blurred = j_img.gaussian_blur(jnp.asarray(raw), 2.0)
+    with pltpu.force_tpu_interpret_mode():
+        patches = extract_patches_pallas(blurred, jnp.asarray(pts),
+                                         brief_cuda.PATCH_WIN)
+    diff = jnp.dot(patches.reshape(n, -1), jnp.asarray(j_brief._CMP_W),
+                   precision=jax.lax.Precision.HIGHEST)
+    ref = np.asarray(j_brief._pack_bits((diff > 0).astype(jnp.uint32)))
+    ref = np.where(valid[:, None], ref, 0).astype(np.uint32)
+    got = brief_cuda.extract_brief_raw(
+        torch.as_tensor(raw), torch.as_tensor(pts), torch.as_tensor(valid),
+        t_brief.pattern_tensor(CPU), t_img.gaussian_taps(2.0)).numpy()
+    assert valid.sum() >= 30
+    assert not got[~valid].any()
+    n_diff = int(np.sum(_bits(got.view(np.uint32)[valid])
+                        != _bits(ref[valid])))
+    assert n_diff <= 1e-3 * valid.sum() * 256, n_diff
+
+
+def test_extract_brief_raw_refuses_other_devices():
+    """Dispatch is on the tensor's device: a tensor on any device but the
+    CPU or a CUDA card raises instead of falling back."""
+    raw, _, pts, valid = _scene(12)
+    meta = lambda x: torch.as_tensor(x).to("meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        brief_cuda.extract_brief_raw(
+            meta(raw), meta(pts), meta(valid),
+            meta(t_brief.pattern_tensor(CPU)), t_img.gaussian_taps(2.0))
+
+
 def test_fast_score_matches_jax():
     _, blurred, _, _ = _scene(5)
     img = np.asarray(j_img.gaussian_blur(jnp.asarray(blurred), 1.0))
@@ -247,3 +337,34 @@ def test_brief_kernel_on_card():
     torch.cuda.synchronize()
     assert brief_cuda.extract_brief_words.launches == n0 + 1
     assert torch.equal(got, brief_cuda.extract_brief_words_plain(*args))
+
+
+@pytest.mark.gpu
+def test_brief_raw_kernel_on_card():
+    """On a CUDA card: the raw-frame entry launches once, counts its
+    launch, and equals its plain version bit for bit, on a frame whose
+    base is 16-byte aligned and on one that is not (a storage offset of
+    one float), with keypoints at all four borders; the blurred-input
+    entry does not launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda", 0)
+    raw, _, pts, valid = _scene(13)
+    pts[6:10] = [[1.0, H / 2], [W - 1.5, H / 3], [W / 2, 0.25],
+                 [W / 3, H - 1.0]]
+    valid[6:10] = True
+    flat = torch.empty(H * W + 1, device=dev)
+    shifted = flat[1:].view(H, W).copy_(torch.as_tensor(raw))
+    assert shifted.data_ptr() % 16 != 0 and shifted.is_contiguous()
+    rest = (torch.as_tensor(pts, device=dev),
+            torch.as_tensor(valid, device=dev), t_brief.pattern_tensor(dev),
+            t_img.gaussian_taps(2.0))
+    for img in (torch.as_tensor(raw, device=dev), shifted):
+        n0 = brief_cuda.extract_brief_raw.launches
+        w0 = brief_cuda.extract_brief_words.launches
+        got = brief_cuda.extract_brief_raw(img, *rest)
+        torch.cuda.synchronize()
+        assert brief_cuda.extract_brief_raw.launches == n0 + 1
+        assert brief_cuda.extract_brief_words.launches == w0
+        assert torch.equal(got, brief_cuda.extract_brief_raw_plain(img,
+                                                                   *rest))

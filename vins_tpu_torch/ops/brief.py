@@ -2,8 +2,9 @@
 
 Descriptors are [N, 8] int32 tensors holding the bit patterns of the JAX
 package's packed uint32 words (PyTorch has no shifts or popcount on
-uint32). extract_brief blurs the raw frame in plain PyTorch and reads the
-256 test pairs through kernel K3 (ops/brief_cuda.py), with the TPU
+uint32). extract_brief reads the 256 test pairs from the raw frame
+through kernel K3 (ops/brief_cuda.extract_brief_raw), which fuses the
+Gaussian blur: one launch per call on the card. It keeps the TPU
 semantics of a clamped subpixel-aligned patch per keypoint. Hamming
 distances use a SWAR popcount on int64, the stand-in for
 jax.lax.population_count.
@@ -59,10 +60,10 @@ def extract_brief(img: torch.Tensor, pts: torch.Tensor, valid: torch.Tensor,
                   blur_sigma: float = 2.0) -> torch.Tensor:
     """Packed BRIEF descriptors [N, 8] int32 of keypoints pts [N, 2] (pixel
     x, y) on the raw frame img [H, W]; invalid rows are 0."""
-    smoothed = image_mod.gaussian_blur(img, blur_sigma).contiguous()
-    return brief_cuda.extract_brief_words(
-        smoothed, pts.to(torch.float32).contiguous(), valid.contiguous(),
-        pattern_tensor(pts.device))
+    return brief_cuda.extract_brief_raw(
+        img.contiguous(), pts.to(torch.float32).contiguous(),
+        valid.contiguous(), pattern_tensor(pts.device),
+        image_mod.gaussian_taps(blur_sigma))
 
 
 def hamming_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -1,34 +1,44 @@
-"""Kernel K3 (BRIEF words from subpixel-aligned patches): the CUDA wrapper
-and its plain PyTorch versions.
+"""Kernel K3 (BRIEF words from subpixel-aligned patches): the CUDA wrappers
+and their plain PyTorch versions.
 
 K3 replaces `_patches_kernel` / `extract_patches_pallas`
 (vins_tpu/ops/klt_pallas.py:329-365) together with the one-hot difference
 matmul and bit packing that follow it in vins_tpu/ops/brief.extract_brief
-(brief.py:89-101); the CUDA source is vins_tpu_torch/csrc/brief.cu. The
-port follows the TPU semantics on every device: each keypoint's 49x49
-patch corner is clamped once, as `_bilinear_patch` clamps it
-(klt_pallas.py:40-46), so every tap of a keypoint within 25 px of a
-border shifts with the patch. (The JAX package's CPU branch clamps each
-tap alone instead; the two agree only inside the border.)
+(brief.py:89-101); the CUDA source is vins_tpu_torch/csrc/brief.cu. It
+has two entries on one kernel: `extract_brief_raw`, which the system
+calls, takes the raw frame and fuses the Gaussian blur that precedes the
+patch kernel (brief.py:87), staging each keypoint's window in shared
+memory; `extract_brief_words` takes a frame blurred beforehand, the
+direct counterpart of the Pallas kernel. The port follows the TPU
+semantics on every device: each keypoint's 49x49 patch corner is clamped
+once, as `_bilinear_patch` clamps it (klt_pallas.py:40-46), so every tap
+of a keypoint within 25 px of a border shifts with the patch. (The JAX
+package's CPU branch clamps each tap alone instead; the two agree only
+inside the border.)
 
 Descriptors are [N, 8] int32 tensors holding the bit patterns of the
 JAX package's packed uint32 words.
 
 Dispatch is on the tensor's device: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel or raises. Nothing falls back.
-The wrapper counts its launches in `extract_brief_words.launches`.
+Each wrapper counts its launches (`extract_brief_raw.launches`,
+`extract_brief_words.launches`).
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from . import native
+from .image import _sep_filter
 from .klt_cuda import _check_tensor, _patches, _stream_ptr
 
 PATCH_HALF = 24
 PATCH_WIN = 2 * PATCH_HALF + 1     # 49x49 patch
 BRIEF_BITS = 256
 BRIEF_WORDS = BRIEF_BITS // 32
+BLUR_TAPS = 5                      # the raw-frame kernel's blur taps
 
 
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:
@@ -83,7 +93,20 @@ def extract_brief_words_plain(img: torch.Tensor, pts: torch.Tensor,
                                    device=img.device))
 
 
-def _brief_words_cuda(img, pts, valid, pattern):
+def extract_brief_raw_plain(raw: torch.Tensor, pts: torch.Tensor,
+                            valid: torch.Tensor, pattern: torch.Tensor,
+                            taps) -> torch.Tensor:
+    """Plain version of the raw-frame entry: the separable reflect-101
+    blur of raw [H, W] with the 5 taps (image.gaussian_taps), then
+    extract_brief_words_plain."""
+    return extract_brief_words_plain(_sep_filter(raw, tuple(taps)), pts,
+                                     valid, pattern)
+
+
+def _brief_cuda(img, pts, valid, pattern, taps=None):
+    """Check the inputs and launch csrc/brief.cu: the raw-frame entry,
+    which blurs img with `taps`, or, with taps None, the blurred-input
+    entry."""
     dev = pts.device
     N = pts.shape[0]
     H, W = img.shape
@@ -95,11 +118,38 @@ def _brief_words_cuda(img, pts, valid, pattern):
     _check_tensor("valid", valid, (N,), torch.bool, dev)
     _check_tensor("pattern", pattern, (BRIEF_BITS, 4), torch.int32, dev)
     words = torch.empty((N, BRIEF_WORDS), dtype=torch.int32, device=dev)
-    status = native.library().vins_brief_words(
-        img.data_ptr(), H, W, pts.data_ptr(), valid.data_ptr(),
-        pattern.data_ptr(), N, words.data_ptr(), _stream_ptr(dev))
-    native.check(status, "vins_brief_words")
+    lib = native.library()
+    head = (img.data_ptr(), H, W, pts.data_ptr(), valid.data_ptr(),
+            pattern.data_ptr())
+    tail = (N, words.data_ptr(), _stream_ptr(dev))
+    if taps is None:
+        name = "vins_brief_words"
+        status = lib.vins_brief_words(*head, *tail)
+    else:
+        if len(taps) != BLUR_TAPS:
+            raise ValueError(f"the kernel blurs with {BLUR_TAPS} taps, not "
+                             f"{len(taps)}")
+        name = "vins_brief_raw_words"
+        k = (ctypes.c_float * BLUR_TAPS)(*taps)
+        status = lib.vins_brief_raw_words(*head, ctypes.addressof(k), *tail)
+    native.check(status, name)
     return words
+
+
+def extract_brief_raw(raw: torch.Tensor, pts: torch.Tensor,
+                      valid: torch.Tensor, pattern: torch.Tensor,
+                      taps) -> torch.Tensor:
+    """K3 from the raw frame: [N, 8] int32 BRIEF words of keypoints pts
+    [N, 2] on raw [H, W] blurred with the 5 float32 taps `taps`, in one
+    launch; rows with valid = False are 0."""
+    if pts.is_cuda:
+        out = _brief_cuda(raw, pts, valid, pattern, taps)
+        extract_brief_raw.launches += 1
+        return out
+    if pts.device.type != "cpu":
+        raise ValueError(f"extract_brief_raw: unsupported device "
+                         f"{pts.device}")
+    return extract_brief_raw_plain(raw, pts, valid, pattern, taps)
 
 
 def extract_brief_words(img: torch.Tensor, pts: torch.Tensor,
@@ -108,7 +158,7 @@ def extract_brief_words(img: torch.Tensor, pts: torch.Tensor,
     """K3: [N, 8] int32 BRIEF words of keypoints pts [N, 2] on the blurred
     frame img [H, W]; rows with valid = False are 0."""
     if pts.is_cuda:
-        out = _brief_words_cuda(img, pts, valid, pattern)
+        out = _brief_cuda(img, pts, valid, pattern)
         extract_brief_words.launches += 1
         return out
     if pts.device.type != "cpu":
@@ -117,8 +167,10 @@ def extract_brief_words(img: torch.Tensor, pts: torch.Tensor,
     return extract_brief_words_plain(img, pts, valid, pattern)
 
 
+extract_brief_raw.launches = 0
 extract_brief_words.launches = 0
 
 
 def reset_launch_counts() -> None:
+    extract_brief_raw.launches = 0
     extract_brief_words.launches = 0

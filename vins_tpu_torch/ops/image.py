@@ -51,13 +51,21 @@ def _sep_filter(img: torch.Tensor, kernel: Tuple[float, ...],
                         kernel, img.dim() - 1, decimate)
 
 
-def gaussian_blur(img: torch.Tensor, sigma: float = 1.0,
-                  radius: int = 2) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def gaussian_taps(sigma: float = 1.0, radius: int = 2) -> Tuple[float, ...]:
+    """The 2 * radius + 1 normalized Gaussian taps, each a float32 value
+    (the JAX band matrix holds them as float32). gaussian_blur and the
+    fused BRIEF kernel (ops/brief_cuda.extract_brief_raw) both read them
+    here."""
     x = np.arange(-radius, radius + 1, dtype=np.float64)
     k = np.exp(-0.5 * (x / sigma) ** 2)
     k = k / np.sum(k)
-    # The JAX band matrix holds the taps as float32.
-    return _sep_filter(img, tuple(float(np.float32(v)) for v in k))
+    return tuple(float(np.float32(v)) for v in k)
+
+
+def gaussian_blur(img: torch.Tensor, sigma: float = 1.0,
+                  radius: int = 2) -> torch.Tensor:
+    return _sep_filter(img, gaussian_taps(sigma, radius))
 
 
 _PYR_K = (1.0 / 16, 4.0 / 16, 6.0 / 16, 4.0 / 16, 1.0 / 16)

@@ -51,6 +51,9 @@ _ARGTYPES = {
     # img, H, W, pts, valid, pattern, N, words, stream
     "vins_brief_words": [_VP, ctypes.c_int, ctypes.c_int, _VP, _VP, _VP,
                          ctypes.c_int, _VP, _VP],
+    # raw, H, W, pts, valid, pattern, taps (host float[5]), N, words, stream
+    "vins_brief_raw_words": [_VP, ctypes.c_int, ctypes.c_int, _VP, _VP, _VP,
+                             _VP, ctypes.c_int, _VP, _VP],
 }
 
 _lock = threading.Lock()
