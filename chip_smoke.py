@@ -30,20 +30,34 @@ Phases (any failure exits non-zero, and no result line is printed):
                 blurred-input entry alone;
   4. loop     — the default system, VinsSystem(cfg) with loop closure on,
                 at default_config() on bench.py's revisiting circle
-                (w = 0.7, bob 0.15): ground-truth bootstrap, then 720
-                frames (2.7 laps) in blocks of 48; fails without finite
-                poses, a verified loop hit, a pose-graph run, a ride-time
-                attach and one fused K3 launch per keyframe insert and
-                attach try (the blurred-input entry never);
+                (w = 0.7, bob 0.15): it bootstraps itself (visual-inertial
+                initialization, no ground truth) within bench.py's 48
+                frames, then 720 frames (2.7 laps) in blocks of 48; fails
+                without finite poses, a verified loop hit, a pose-graph
+                run, a ride-time attach and one fused K3 launch per
+                keyframe insert and attach try (the blurred-input entry
+                never);
   5. loop-off — VinsSystem(cfg, use_loop=False) over 192 frames of the
-                slower w = 0.35 circle, checked for finite poses and an
-                aligned ATE under 0.15 m.
+                slower w = 0.35 circle: initialized by frame 45 and an
+                aligned ATE under 0.15 m (tests/test_stream_parity.py's
+                bounds for the same in-stream bootstrap);
+  6. interactive — VinsSystem(cfg) with loop closure on, frame by frame
+                through process_frame over 150 frames of the w = 0.35
+                circle: bootstrap, then the 30 Hz motion-only solve on
+                every frame, the backend every third and the loop DB on
+                keyframes; fails unless it initializes, its poses are
+                finite, its aligned ATE is under 0.15 m, klt_fb_ncc
+                launches once per tracked frame and K3 from the raw frame
+                once per keyframe insert.
+Every run prints its initialization attempts (frame, status, wall time,
+synchronizing CUDA calls); the interactive run prints the per-frame wall
+time of the motion-only solve, a backend frame and a keyframe insert.
 Kernel launch counts are set to 0 just before each system run and read
 just after it; every kernel on a run's path must have launched there
 (klt_fb_ncc once per tracked frame, the standalone K1 and K2 never;
 in the loop-on run K3 from the raw frame once per keyframe insert and
 ride-time attach try, K3's blurred-input entry never).
-Each system run also counts its synchronizing CUDA calls block by block
+The block runs also count their synchronizing CUDA calls block by block
 (torch.cuda.set_sync_debug_mode("warn")). A kernel's bound counts the
 bytes its inputs need (the pixels under the windows or taps it reads,
 overlaps once) and the operations of this run's iterations.
@@ -66,7 +80,7 @@ BLOCK = 48
 SEED = 7
 # Loop-off run: the trajectory of tests/test_stream_parity.py (w = 0.35
 # rad/s), on which its 0.15 m bound on the aligned ATE was set.
-N_FRAMES_OFF = 192      # 31 bootstrap frames, then 3 blocks of 48 and 17
+N_FRAMES_OFF = 192      # the bootstrap (by frame 45), then blocks of 48
 TRAJ_OFF = dict(w=0.35, bob=0.15)
 ATE_MAX = 0.15          # tests/test_stream_parity.py:242, after alignment
 # Loop-on run: bench.py's revisiting circle (bench.py:101-104), where the
@@ -78,6 +92,15 @@ ATE_MAX = 0.15          # tests/test_stream_parity.py:242, after alignment
 # drifts on this circle.
 N_AFTER_BOOT_LOOP = 720
 TRAJ_LOOP = dict(w=0.7, bob=0.15)
+# Initialization budgets: bench.py:117 gives the system frames 0-47 to
+# bootstrap on its circle; tests/test_stream_parity.py:237 asserts the
+# in-stream bootstrap on the w = 0.35 circle by frame 45.
+N_BOOT_MAX = 48
+N_FRAMES_LOOP = N_BOOT_MAX + N_AFTER_BOOT_LOOP
+INIT_AT_MAX_OFF = 45
+# Interactive run: frame by frame on the w = 0.35 circle, well past
+# bootstrap (about 30 frames).
+N_FRAMES_INTERACTIVE = 150
 FLOW_TOL = 1e-3         # px
 NCC_TOL = 1e-4
 OK_AGREE = 0.99
@@ -739,14 +762,67 @@ def _ate(est, gt) -> tuple:
     return ate_rmse(est, gt).rmse, raw
 
 
-def _stream_counting_syncs(sys_, stream, on_card: bool):
-    """Run stream() with every synchronizing CUDA call reported as a
-    warning (torch.cuda.set_sync_debug_mode("warn")), and split the count
-    at the start of each dispatch_block and of the end-of-stream drain.
-    Returns stream()'s result and one record per segment: its syncs and
-    the verified hits, PACK_LGOOD frames and pose-graph runs it added."""
-    import torch
+class _SyncCounter:
+    """While active, every synchronizing CUDA call is reported as a
+    warning (torch.cuda.set_sync_debug_mode("warn")) and recorded;
+    mark() and count() split the record. Counts stay 0 off the card."""
 
+    def __init__(self, on_card: bool):
+        self.on_card = on_card
+        self.caught = []
+
+    def __enter__(self):
+        import torch
+        self._cm = warnings.catch_warnings(record=True)
+        self.caught = self._cm.__enter__()
+        warnings.simplefilter("always")
+        if self.on_card:
+            torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        if self.on_card:
+            torch.cuda.set_sync_debug_mode("default")
+        return self._cm.__exit__(*exc)
+
+    def mark(self) -> int:
+        return len(self.caught)
+
+    def count(self, start: int, end=None) -> int:
+        return sum(1 for w in self.caught[start:end]
+                   if "synchroniz" in str(w.message))
+
+
+def _record_attempts(sys_, counter: _SyncCounter, sync) -> list:
+    """Wrap sys_._initialize_window: each bootstrap attempt records its
+    frame, status, wall time (synchronized) and synchronizing CUDA calls
+    (counted before the closing synchronize). Returns the record list;
+    del sys_._initialize_window restores the method."""
+    attempts = []
+    attempt = sys_._initialize_window
+
+    def timed(feats, chunks, frames):
+        at = counter.mark()
+        t0 = time.perf_counter()
+        window, cost, status = attempt(feats, chunks, frames)
+        n_sync = counter.count(at)
+        sync()
+        attempts.append(dict(frame=int(frames[-1]),
+                             status=status or "SUCCESS",
+                             seconds=time.perf_counter() - t0,
+                             syncs=n_sync))
+        return window, cost, status
+
+    sys_._initialize_window = timed
+    return attempts
+
+
+def _stream_counting_syncs(sys_, stream, counter: _SyncCounter):
+    """Run stream() with the counter active, and split its count at the
+    start of each dispatch_block and of the end-of-stream drain. Returns
+    stream()'s result and one record per segment: its syncs and the
+    verified hits, PACK_LGOOD frames and pose-graph runs it added."""
     marks = []
 
     def loop_state():
@@ -756,30 +832,22 @@ def _stream_counting_syncs(sys_, stream, on_card: bool):
 
     def marked(kind, fn):
         def call(*args, **kwargs):
-            marks.append((kind, len(caught), loop_state()))
+            marks.append((kind, counter.mark(), loop_state()))
             return fn(*args, **kwargs)
         return call
 
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        sys_.dispatch_block = marked("block", sys_.dispatch_block)
-        sys_.drain_loop_work = marked("drain", sys_.drain_loop_work)
-        if on_card:
-            torch.cuda.set_sync_debug_mode("warn")
-        try:
-            out = stream()
-        finally:
-            if on_card:
-                torch.cuda.set_sync_debug_mode("default")
-            del sys_.dispatch_block, sys_.drain_loop_work
-        ends = [(at, st) for _, at, st in marks[1:]] + [(len(caught),
-                                                         loop_state())]
+    sys_.dispatch_block = marked("block", sys_.dispatch_block)
+    sys_.drain_loop_work = marked("drain", sys_.drain_loop_work)
+    try:
+        out = stream()
+    finally:
+        del sys_.dispatch_block, sys_.drain_loop_work
+    ends = [(at, st) for _, at, st in marks[1:]] + [(counter.mark(),
+                                                     loop_state())]
     segments = []
     for (kind, at, st), (at_end, st_end) in zip(marks, ends):
         segments.append(dict(
-            kind=kind,
-            syncs=sum(1 for w in caught[at:at_end]
-                      if "synchroniz" in str(w.message)),
+            kind=kind, syncs=counter.count(at, at_end),
             hits=st_end[0] - st[0], attach_frames=st_end[1] - st[1],
             pose_graph_runs=st_end[2] - st[2]))
     return out, segments
@@ -806,11 +874,13 @@ def _sync_summary(segments) -> dict:
 
 
 def slice_phase(cfg, device, use_loop: bool, traj: dict, n_frames: int,
-                block: int = BLOCK) -> dict:
-    """Drive VinsSystem.process_stream over a rendered sequence; returns
-    the measurements, synchronizing CUDA calls per block included. Runs
-    on any device (the CPU takes the kernels' plain versions, and launch
-    and sync counts stay 0 there)."""
+                block: int = BLOCK, max_init_at=None) -> dict:
+    """Drive VinsSystem.process_stream over a rendered sequence, the
+    system bootstrapping itself (failing if that takes past frame
+    max_init_at); returns the measurements, the initialization attempts
+    and the synchronizing CUDA calls per block included. Runs on any
+    device (the CPU takes the kernels' plain versions, and launch and
+    sync counts stay 0 there)."""
     import torch
     from vins_tpu_torch import stream as stream_mod
     from vins_tpu_torch.io import synthetic
@@ -829,8 +899,7 @@ def slice_phase(cfg, device, use_loop: bool, traj: dict, n_frames: int,
     render_s = time.perf_counter() - t0
     ts = seq.timestamps.cpu().numpy()
 
-    sys_ = VinsSystem(cfg, ext=seq.ext, device=device, use_loop=use_loop,
-                      initializer=synthetic.ground_truth_initializer(seq, cfg))
+    sys_ = VinsSystem(cfg, ext=seq.ext, device=device, use_loop=use_loop)
     # Each ride-time attach try extracts BRIEF once: count the tries.
     attach = stream_mod._attach_loop
     attach_tries = 0
@@ -844,12 +913,16 @@ def slice_phase(cfg, device, use_loop: bool, traj: dict, n_frames: int,
     _reset_counts()
     t0 = time.perf_counter()
     try:
-        outs, segments = _stream_counting_syncs(
-            sys_, lambda: sys_.process_stream(imgs, seq.chunks, block=block,
-                                              ts=ts), on_card)
+        with _SyncCounter(on_card) as counter:
+            attempts = _record_attempts(sys_, counter, sync)
+            outs, segments = _stream_counting_syncs(
+                sys_, lambda: sys_.process_stream(imgs, seq.chunks,
+                                                  block=block, ts=ts),
+                counter)
         sync()
     finally:
         stream_mod._attach_loop = attach
+        del sys_._initialize_window
     wall = time.perf_counter() - t0
     launches = _read_counts()
 
@@ -857,7 +930,10 @@ def slice_phase(cfg, device, use_loop: bool, traj: dict, n_frames: int,
         _fail(f"{len(outs)} outputs for {n_frames} frames")
     init_at = next((i for i, o in enumerate(outs) if o.initialized), None)
     if init_at is None:
-        _fail("the system never initialized")
+        _fail(f"the system never initialized (attempts {attempts})")
+    if max_init_at is not None and init_at > max_init_at:
+        _fail(f"initialized at frame {init_at}, after frame {max_init_at} "
+              f"(attempts {attempts})")
     post = outs[init_at:]
     if not all(o.initialized for o in post):
         _fail("an output after bootstrap is not initialized")
@@ -875,6 +951,7 @@ def slice_phase(cfg, device, use_loop: bool, traj: dict, n_frames: int,
                                             "publish", "drain"))
     res = dict(
         use_loop=use_loop, frames=n_frames, init_at=init_at,
+        init_attempts=attempts,
         ate_rmse_m=ate, ate_raw_rmse_m=ate_raw,
         ate_rmse_uncorrected_m=ate_nc, ate_raw_rmse_uncorrected_m=ate_raw_nc,
         wall_s=wall, render_s=render_s,
@@ -926,7 +1003,156 @@ def slice_phase(cfg, device, use_loop: bool, traj: dict, n_frames: int,
     return res
 
 
+def interactive_phase(cfg, device, traj: dict, n_frames: int) -> dict:
+    """Drive VinsSystem.process_frame (loop closure on) frame by frame over
+    a rendered sequence: bootstrap, then the interactive NON_LINEAR path.
+    Returns the measurements: the initialization attempts, each frame's
+    wall time by kind (boot, a 30 Hz frame with the motion-only solve, a
+    backend frame), the motion-only solve's own time (pnp_step) and each
+    keyframe insert's (insert and detection). Runs on any device."""
+    import torch
+    from vins_tpu_torch.core import pnp as pnp_mod
+    from vins_tpu_torch.core.preintegration import ImuChunk
+    from vins_tpu_torch.io import synthetic
+    from vins_tpu_torch.pipeline import VinsSystem
+
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    seq = synthetic.make_synthetic_sequence(
+        cfg, n_frames=n_frames, n_landmarks=300, seed=SEED,
+        frame_dt=1.0 / 30.0, traj_kwargs=traj, imu_per_frame=4,
+        device=device)
+    imgs = synthetic.render_sequence_images(seq, cfg, seed=SEED,
+                                            device=device)
+    ts = seq.timestamps.cpu().numpy()
+    sys_ = VinsSystem(cfg, ext=seq.ext, device=device)
+
+    solve_ms, insert_ms = [], []
+
+    def timed(fn, into):
+        def call(*args, **kwargs):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            sync()
+            into.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return call
+
+    step = pnp_mod.pnp_step
+    pnp_mod.pnp_step = timed(step, solve_ms)
+    sys_._handle_keyframe = timed(sys_._handle_keyframe, insert_ms)
+    frames, outs = [], []
+    _reset_counts()
+    try:
+        with _SyncCounter(on_card) as counter:
+            attempts = _record_attempts(sys_, counter, sync)
+            sync()
+            t_run = time.perf_counter()
+            for k in range(n_frames):
+                kind = ("boot" if not sys_.initialized else "backend"
+                        if sys_.frame_idx % cfg.freq == 0 else "solve")
+                n_ins = len(insert_ms)
+                t0 = time.perf_counter()
+                outs.append(sys_.process_frame(
+                    imgs[k], ImuChunk(*[x[k] for x in seq.chunks]),
+                    t=float(ts[k])))
+                sync()
+                frames.append(dict(kind=kind, insert=len(insert_ms) > n_ins,
+                                   ms=(time.perf_counter() - t0) * 1e3))
+            wall = time.perf_counter() - t_run
+    finally:
+        pnp_mod.pnp_step = step
+        del sys_._handle_keyframe, sys_._initialize_window
+    launches = _read_counts()
+
+    init_at = next((i for i, o in enumerate(outs) if o.initialized), None)
+    if init_at is None:
+        _fail(f"the interactive system never initialized (attempts "
+              f"{attempts})")
+    post = outs[init_at:]
+    if not all(o.initialized for o in post):
+        _fail("an interactive output after bootstrap is not initialized "
+              f"(statuses {[o.status for o in post if o.status]})")
+    est = np.stack([o.p for o in post])
+    quats = np.stack([o.q for o in post])
+    if not (np.all(np.isfinite(est)) and np.all(np.isfinite(quats))):
+        _fail("non-finite interactive pose after bootstrap")
+    ate, ate_raw = _ate(est, seq.p.cpu().numpy()[init_at:])
+    if ate >= ATE_MAX:
+        _fail(f"interactive aligned ATE RMSE {ate:.4f} m >= {ATE_MAX} m")
+    lc = sys_.loop
+    tracked = n_frames - 1          # frame 0 only detects
+    if on_card:
+        if launches["klt_fb_ncc"] != tracked:
+            _fail(f"interactive: klt_fb_ncc launched "
+                  f"{launches['klt_fb_ncc']} times for {tracked} tracked "
+                  f"frames")
+        if (lc.n_inserts < 1 or launches["brief_raw_words"] != lc.n_inserts
+                or launches["brief_words"] or launches["klt_pyramid"]
+                or launches["patch_ncc"]):
+            _fail(f"interactive: K3 from the raw frame launched "
+                  f"{launches['brief_raw_words']} times for {lc.n_inserts} "
+                  f"keyframe inserts; launches {launches}")
+
+    def stats(xs):
+        return (dict(n=len(xs), median_ms=float(np.median(xs)),
+                     mean_ms=float(np.mean(xs)), max_ms=float(np.max(xs)))
+                if xs else dict(n=0))
+
+    after = frames[init_at + 1:]
+    n_after = len(after)
+    return dict(
+        frames=n_frames, init_at=init_at, init_attempts=attempts,
+        ate_rmse_m=ate, ate_raw_rmse_m=ate_raw, wall_s=wall,
+        frames_per_s=n_frames / wall,
+        frames_per_s_after_init=(n_after / sum(f["ms"] for f in after)
+                                 * 1e3 if n_after else 0.0),
+        pnp_step=stats(solve_ms[1:]),
+        solve_frame=stats([f["ms"] for f in after if f["kind"] == "solve"]),
+        backend_frame=stats([f["ms"] for f in after
+                             if f["kind"] == "backend" and not f["insert"]]),
+        insert_frame=stats([f["ms"] for f in after if f["insert"]]),
+        keyframe_insert=stats(insert_ms),
+        boot_frame=stats([f["ms"] for f in frames[:init_at]
+                          if f["kind"] == "boot"]),
+        keyframes_inserted=lc.n_inserts, loop_stats=dict(sys_.loop_stats),
+        launches=launches)
+
+
+def _attempts_text(run: dict) -> str:
+    return "; ".join(
+        f"frame {a['frame']} {a['status']} {a['seconds']:.3f} s "
+        f"{a['syncs']} syncs" for a in run["init_attempts"])
+
+
+def _report_interactive(run: dict, card: str) -> None:
+    print(f"interactive init: frame {run['init_at']}, "
+          f"{len(run['init_attempts'])} attempts: {_attempts_text(run)}; "
+          f"{card}")
+
+    def ms(key):
+        st = run[key]
+        return (f"median {st['median_ms']:.2f} ms (mean {st['mean_ms']:.2f},"
+                f" max {st['max_ms']:.2f}, n {st['n']})" if st["n"]
+                else "none")
+
+    print(f"interactive: {run['frames']} frames, init at frame "
+          f"{run['init_at']}, ATE {run['ate_rmse_m']:.4f} m aligned, "
+          f"{run['ate_raw_rmse_m']:.4f} m raw; {run['frames_per_s']:.2f} "
+          f"frames/s end to end, {run['frames_per_s_after_init']:.2f} after "
+          f"init; motion-only solve (pnp_step) {ms('pnp_step')}; 30 Hz "
+          f"frame {ms('solve_frame')}; backend frame {ms('backend_frame')};"
+          f" backend frame with a keyframe insert {ms('insert_frame')}; "
+          f"keyframe insert and detection {ms('keyframe_insert')}; boot "
+          f"frame {ms('boot_frame')}; {run['keyframes_inserted']} keyframes"
+          f" inserted; launches {run['launches']}; {card}")
+
+
 def _report_run(tag: str, run: dict, card: str) -> None:
+    print(f"{tag} init: frame {run['init_at']}, "
+          f"{len(run['init_attempts'])} attempts: {_attempts_text(run)}; "
+          f"{card}")
     line = (f"{tag}: {run['frames']} frames, init at frame "
             f"{run['init_at']}, ATE {run['ate_rmse_m']:.4f} m aligned, "
             f"{run['ate_raw_rmse_m']:.4f} m raw")
@@ -985,17 +1211,21 @@ def main() -> None:
     device = torch.device("cuda", 0)
     kernels = kernel_phase(cfg, device)
 
-    n_boot = cfg.freq * (cfg.window.num_frames - 1) + 1
-    run_loop = slice_phase(cfg, device, True, TRAJ_LOOP,
-                           n_boot + N_AFTER_BOOT_LOOP)
+    run_loop = slice_phase(cfg, device, True, TRAJ_LOOP, N_FRAMES_LOOP,
+                           max_init_at=N_BOOT_MAX - 1)
     _report_run("loop", run_loop, card)
-    run_off = slice_phase(cfg, device, False, TRAJ_OFF, N_FRAMES_OFF)
+    run_off = slice_phase(cfg, device, False, TRAJ_OFF, N_FRAMES_OFF,
+                          max_init_at=INIT_AT_MAX_OFF)
     _report_run("loop-off", run_off, card)
+    run_int = interactive_phase(cfg, device, TRAJ_OFF, N_FRAMES_INTERACTIVE)
+    _report_interactive(run_int, card)
 
     for k in kernels:
         k["launches"] = run_loop["launches"][k["name"]]
         k["launches_loop_off"] = run_off["launches"][k["name"]]
+        k["launches_interactive"] = run_int["launches"][k["name"]]
     report["loop"], report["loop_off"] = run_loop, run_off
+    report["interactive"] = run_int
     report["kernels"] = kernels
     os.makedirs("smoke_out", exist_ok=True)
     with open(os.path.join("smoke_out", "chip_smoke.json"), "w") as f:

@@ -543,7 +543,8 @@ def test_pnp_deadreckon_step_matches_jax(win, booted):
                                     do_solve=False, update_preints=False)
         wt, pose_t = t_pnp.pnp_step(wt, c_t, torch.as_tensor(obs),
                                     torch.as_tensor(msk), TCFG,
-                                    est_t_ext(w), grav)
+                                    est_t_ext(w), grav, do_solve=False,
+                                    update_preints=False)
         for a, b in zip(pose_t, pose_j):
             _close(a, b, 1e-5, msg=f"frame {k}")
     back = interop.to_numpy(wt)

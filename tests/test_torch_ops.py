@@ -163,8 +163,24 @@ def test_lie_utilities_match_jax():
     p, q = t_lie.pose_retract(_t(v), _t(qa), _t(d))
     pj, qj = j_lie.pose_retract(v, qa, d)
     pairs += [(p, pj), (q, qj)]
+    # Initialization's helpers: the quaternion product matrices, gravity
+    # levelling (g antiparallel to +z included) and the numpy twins.
+    g = np.concatenate([v, [[0.0, 0.0, -9.8], [0.0, 0.0, 9.8]]]).astype(
+        np.float32)
+    pairs += [
+        (t_lie.quat_left(_t(qa)), j_lie.quat_left(qa)),
+        (t_lie.quat_right(_t(qa)), j_lie.quat_right(qa)),
+        (t_lie.gravity_to_rotmat(_t(g)), j_lie.gravity_to_rotmat(g)),
+        (_t(t_lie.np_quat_mul(qa, qb)), j_lie.np_quat_mul(qa, qb)),
+        (_t(t_lie.np_so3_exp_quat(th)), j_lie.np_so3_exp_quat(th)),
+    ]
     for a, b in pairs:
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5)
+    R0 = t_lie.gravity_to_rotmat(_t(g))
+    up = (R0 @ _t(g)[..., None])[..., 0]
+    np.testing.assert_allclose((up / up.norm(dim=-1, keepdim=True)).numpy(),
+                               np.tile([0.0, 0.0, 1.0], (len(g), 1)),
+                               atol=1e-5)
 
 
 @pytest.mark.parametrize("name", ["default_config", "euroc_config"])

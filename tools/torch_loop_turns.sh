@@ -6,7 +6,9 @@
 # DIR_A and DIR_B are checkouts of two commits (for example each unpacked
 # with `git archive` into a git-ignored directory of the repo). The script
 # runs chip_smoke.slice_phase with loop closure on (default_config(),
-# bench.py's w = 0.7 circle, 31 bootstrap + 720 streamed frames) from
+# bench.py's w = 0.7 circle, 751 frames: the bootstrap, by ground truth in
+# trees that predate the port's initialization, then about 720 streamed
+# frames) from
 # DIR_A, DIR_B, DIR_B, DIR_A, each in its own process, and prints one JSON
 # line per run: frames/s end to end and in block mode, the block stages'
 # seconds, loop liveness and kernel launches. slice_phase fails the run

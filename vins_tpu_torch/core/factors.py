@@ -98,6 +98,18 @@ def projection_factor_local(obs_i, obs_j, p_i, q_i, p_j, q_j, inv_dep,
                           obs_i.device)
 
 
+def perspective_residual(pt_world, obs, p, q, ext: Extrinsics):
+    """2-dim residual of a fixed world landmark seen from pose (p, q)
+    (perspective_factor.cpp:16-40; the caller folds the track weight into
+    its sqrt_info)."""
+    pts_imu = lie.quat_rotate(lie.quat_conj(q), pt_world - p)
+    pts_cam = lie.quat_rotate(lie.quat_conj(ext.qic), pts_imu - ext.tic)
+    z = pts_cam[..., 2:3]
+    z_safe = torch.where(torch.abs(z) < 1e-4,
+                         torch.where(z < 0, -1e-4, 1e-4).to(z.dtype), z)
+    return pts_cam[..., 0:2] / z_safe - obs
+
+
 def cauchy_weight(r: torch.Tensor, c: float) -> torch.Tensor:
     """Sqrt-reweighting for the Cauchy loss on whitened residuals."""
     s = torch.sum(r * r, -1, keepdim=True)

@@ -1,8 +1,9 @@
 """Synthetic visual-inertial world (port of the streaming parts of
 vins_tpu/io/synthetic.py): the closed-form circle trajectory, the
 per-frame sequence generator, the ray-cast textured-cylinder renderer,
-and a ground-truth initializer that stands in for
-core/initialization.py until that module is ported (ROADMAP item 18).
+and a ground-truth initializer for pipeline.VinsSystem's test seam
+(`initializer=`), which the system otherwise fills by visual-inertial
+initialization.
 
 The sequence and texture come from numpy with a seed, exactly as in the
 JAX module; the renderer runs in PyTorch on any device and draws its

@@ -1,5 +1,5 @@
-"""Batched fixed-hypothesis 8-point F-RANSAC and Gauss–Newton PnP (port
-of vins_tpu/ops/ransac.ransac_fundamental and pnp_gn).
+"""Batched fixed-hypothesis 8-point RANSAC, essential-matrix pose
+recovery and Gauss–Newton PnP (port of vins_tpu/ops/ransac.py).
 
 The reference samples each hypothesis's minimal set by Gumbel-top-k over
 the valid points with jax.random, whose bits torch cannot reproduce, so
@@ -105,6 +105,92 @@ def ransac_fundamental(p1: torch.Tensor, p2: torch.Tensor,
     S = torch.cat([S[:2], torch.zeros_like(S[2:])])
     return RansacResult(model=U @ torch.diag(S) @ Vh, inliers=pick(inl),
                         n_inliers=pick(counts))
+
+
+def ransac_essential(p1: torch.Tensor, p2: torch.Tensor,
+                     valid: torch.Tensor, n_hyps: int = 256,
+                     thresh: float = 1e-5,
+                     gumbel: Optional[torch.Tensor] = None,
+                     generator: Optional[torch.Generator] = None
+                     ) -> RansacResult:
+    """The 8-point F-RANSAC on normalized camera-plane coordinates, its
+    winner projected onto the essential manifold (singular values
+    1, 1, 0)."""
+    res = ransac_fundamental(p1, p2, valid, n_hyps, thresh, gumbel,
+                             generator)
+    U, _, Vh = torch.linalg.svd(res.model)
+    s = torch.ones(3, dtype=p1.dtype, device=p1.device)
+    s[2:].zero_()
+    return res._replace(model=U @ torch.diag(s) @ Vh)
+
+
+def _triangulate_pair(R: torch.Tensor, t: torch.Tensor, p1: torch.Tensor,
+                      p2: torch.Tensor) -> torch.Tensor:
+    """DLT triangulation of [N] correspondences for cam1 = [I|0],
+    cam2 = [R|t]: the null vector of each 4x4 system, read as
+    X[:3] / X[3] (its sign cancels). Returns [N, 3] in cam1's frame."""
+    P2 = torch.cat([R, t[:, None]], 1)                       # [3, 4]
+    a0, a1 = p1[:, 0], p1[:, 1]
+    zero, one = torch.zeros_like(a0), torch.ones_like(a0)
+    A = torch.stack([
+        torch.stack([-one, zero, a0, zero], -1),
+        torch.stack([zero, -one, a1, zero], -1),
+        p2[:, 0:1] * P2[2] - P2[0],
+        p2[:, 1:2] * P2[2] - P2[1]], 1)                      # [N, 4, 4]
+    X = torch.linalg.svd(A)[2][:, -1]
+    w = X[:, 3:]
+    return X[:, :3] / torch.where(torch.abs(w) < 1e-12, 1e-12, w)
+
+
+def _count_in_front(R, t, p1, p2, valid) -> torch.Tensor:
+    """Correspondences triangulated in front of both cameras."""
+    X1 = _triangulate_pair(R, t, p1, p2)
+    z2 = (X1 @ R.T + t)[:, 2]
+    return torch.sum((X1[:, 2] > 0) & (z2 > 0) & valid)
+
+
+def recover_pose(E: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
+                 valid: torch.Tensor):
+    """Cheirality-tested decomposition of E (cv::recoverPose): of the four
+    (R, ±t) candidates the first with the most points in front of both
+    cameras. Returns (R, t, n_good), x2 ~ R x1 + t, |t| = 1. U and Vᵀ
+    are made proper rotations by their determinants' signs; R is then
+    the same whichever basis the SVD picks for E's repeated singular
+    value."""
+    U, _, Vh = torch.linalg.svd(E)
+    U = U * torch.sign(torch.linalg.det(U))
+    Vh = Vh * torch.sign(torch.linalg.det(Vh))
+    Wm = torch.zeros((3, 3), dtype=E.dtype, device=E.device)
+    Wm[0, 1:2].fill_(-1.0)
+    Wm[1, 0:1].fill_(1.0)
+    Wm[2, 2:].fill_(1.0)
+    R1 = U @ Wm @ Vh
+    R2 = U @ Wm.T @ Vh
+    t = U[:, 2]
+    Rs = torch.stack([R1, R1, R2, R2])
+    ts = torch.stack([t, -t, t, -t])
+    counts = torch.stack([_count_in_front(R, tt, p1, p2, valid)
+                          for R, tt in zip(Rs, ts)])
+    best = torch.argmax(counts)[None]
+    pick = lambda x: torch.index_select(x, 0, best)[0]
+    return pick(Rs), pick(ts), pick(counts)
+
+
+def translation_known_rotation(R: torch.Tensor, p1: torch.Tensor,
+                               p2: torch.Tensor, valid: torch.Tensor):
+    """Relative translation direction for a known rotation (the gyro's):
+    each correspondence gives t · (R x̃1 × x̃2) = 0, valid for any scene
+    structure, planes included; min |C t| with |t| = 1 by SVD, the sign
+    by cheirality. Returns (t_unit, n_good)."""
+    ones = torch.ones_like(p1[:, :1])
+    h1 = torch.cat([p1, ones], 1)
+    h2 = torch.cat([p2, ones], 1)
+    C = lie.cross(h1 @ R.T, h2) * valid[:, None].to(p1.dtype)
+    t = torch.linalg.svd(C, full_matrices=False)[2][-1]
+    t = t / torch.clamp(torch.sqrt(torch.sum(t * t)), min=1e-12)
+    n_pos = _count_in_front(R, t, p1, p2, valid)
+    n_neg = _count_in_front(R, -t, p1, p2, valid)
+    return torch.where(n_neg > n_pos, -t, t), torch.maximum(n_pos, n_neg)
 
 
 def pnp_gn(points_w: torch.Tensor, obs: torch.Tensor, valid: torch.Tensor,

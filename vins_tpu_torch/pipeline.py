@@ -1,13 +1,18 @@
 """Full-system orchestration (port of vins_tpu/pipeline.VinsSystem: the
-bootstrap and the streaming block path, with or without loop closure).
+bootstrap, the interactive path and the streaming block path, with or
+without loop closure).
 
 INITIAL: interactive frames through the tracker; every freq-th frame
-joins the boot window, and once it holds F frames the `initializer`
-bootstraps the backend (the port of core/initialization.py is still to
-come, so the caller supplies it, e.g. io.synthetic.ground_truth_
-initializer). NON_LINEAR: blocks of frames through stream.run_vio_scan;
-an in-block failure re-enters INITIAL (a new loop-DB segment) and the
-tail of the stream is reprocessed.
+joins the boot window, and once it holds F frames
+core/initialization.initialize bootstraps it (SfM, gyro bias, gravity and
+scale), refine_init_window solves it, and the final cost is gated on
+cfg.init_max_cost; a failed attempt drops the oldest boot frame and the
+next backend frame retries. NON_LINEAR, interactive (process_frame): the
+motion-only solve gives every frame's 30 Hz pose, every freq-th frame
+runs the backend step, and on every loop_freq-th keyframe the loop DB
+inserts and detects. NON_LINEAR, streaming (process_stream): blocks of
+frames through stream.run_vio_scan; an in-block failure re-enters INITIAL
+(a new loop-DB segment) and the tail of the stream is reprocessed.
 
 Loop closure (use_loop=True, the default, as in the JAX package) runs
 between blocks, one block in flight (the JAX pipeline's depth=1 order):
@@ -32,10 +37,12 @@ import torch
 from . import device as device_mod
 from .config import VinsConfig
 from .core import feature_manager as fm
+from .core import initialization as init_mod
 from .core import marginalization as marg
 from .core import pnp as pnp_mod
 from .core import preintegration as pre_mod
-from .core.estimator import BackendState, LoopInput
+from .core.estimator import (BackendState, FrameInput, LoopInput,
+                             backend_step)
 from .core.factors import Extrinsics
 from .core.state import FeatureTable, WindowState
 from .frontend.tracker import FeatureTracker
@@ -43,10 +50,11 @@ from .loop.keyframe_db import LoopCloser, _fetch, _fill
 from .utils import lie
 from . import stream as stream_mod
 
-# initializer(feats, chunks, frames) -> solved WindowState, or None when
-# the boot window cannot be initialized (the oldest frame is then dropped
-# and the next backend frame retries). frames: the stream indices of the
-# F boot frames; chunks: their F-1 merged IMU edges, stacked.
+# A test seam in place of initialization: initializer(feats, chunks,
+# frames) -> solved WindowState, or None when the boot window cannot be
+# initialized (the oldest frame is then dropped and the next backend
+# frame retries). frames: the stream indices of the F boot frames;
+# chunks: their F-1 merged IMU edges, stacked.
 Initializer = Callable[[FeatureTable, pre_mod.ImuChunk, List[int]],
                        Optional[WindowState]]
 
@@ -162,6 +170,8 @@ class VinsSystem:
     def __init__(self, cfg: VinsConfig, seed: int = 0, use_pnp: bool = True,
                  use_loop: bool = True, ext: Optional[Extrinsics] = None,
                  device=None, initializer: Optional[Initializer] = None):
+        """initializer: a test seam that replaces the visual-inertial
+        initialization (None, the default, runs it)."""
         self.cfg = cfg
         self.device = device_mod.resolve(device)
         dev = self.device
@@ -186,6 +196,9 @@ class VinsSystem:
         self._pending_verify = None  # gate_and_dispatch result to finish
         self._needs_optimize = False
         self._pending_refine = None  # edge refinement awaiting kf rows
+        # Block mode's dead-reckoning leaves the pnp window's carried
+        # preintegrations stale; the next interactive solve rebuilds them.
+        self._pnp_preints_stale = False
         self.loop_stats = {"hits": 0, "staged": 0, "attached": 0,
                            "good_frames": 0, "retired": 0}
         self.timings = {"dispatch": 0.0, "sync": 0.0, "insert": 0.0,
@@ -257,25 +270,28 @@ class VinsSystem:
         return (pts @ self.loop.r_drift.T
                 + self.loop.t_drift[None, :]).astype(np.float32)
 
-    # -- interactive entry (INITIAL) -----------------------------------------
+    # -- interactive entry ----------------------------------------------------
 
     def process_frame(self, img: torch.Tensor, chunk: pre_mod.ImuChunk,
                       t: float = 0.0,
                       gumbel: Optional[torch.Tensor] = None
                       ) -> PipelineOutput:
-        """One camera frame + the IMU chunk since the previous frame, while
-        the system is not initialized. gumbel: optional RANSAC noise."""
-        if self.initialized:
-            raise NotImplementedError(
-                "interactive NON_LINEAR frames (_process_nonlinear) are not "
-                "ported yet; feed initialized frames through process_stream")
+        """One camera frame + the IMU chunk since the previous frame.
+        gumbel: optional RANSAC noise for the tracker."""
+        img = img.to(self.device, torch.float32)
         is_backend_frame = (self.frame_idx % self.cfg.freq) == 0
         front = self.tracker.process(img, do_topup=True, gumbel=gumbel)
         frame = self.frame_idx
         self.frame_idx += 1
-        out = self._process_boot(front, chunk, t, is_backend_frame, frame)
+        if not self.initialized:
+            out = self._process_boot(front, chunk, t, is_backend_frame, frame)
+        else:
+            out = self._process_nonlinear(img, front, chunk, t,
+                                          is_backend_frame)
         self.trajectory.append(out.p)
         return out
+
+    # -- INITIAL --------------------------------------------------------------
 
     def _process_boot(self, front, chunk, t, is_backend_frame,
                       frame) -> PipelineOutput:
@@ -294,11 +310,6 @@ class VinsSystem:
             self.boot.pop(0)
         if len(self.boot) < F:
             return self._null_output(t, front)
-        if self.initializer is None:
-            raise NotImplementedError(
-                "visual-inertial initialization (core/initialization.py) "
-                "is not ported yet: pass an initializer, e.g. "
-                "io.synthetic.ground_truth_initializer(seq, cfg)")
 
         # Keep only ids seen in >= 2 boot frames (the only tracks the
         # initializer can use), most-observed first when they overflow
@@ -319,12 +330,14 @@ class VinsSystem:
                                     torch.as_tensor(sel, device=self.device))
         chunks = pre_mod.ImuChunk(*[torch.stack(xs) for xs in zip(
             *[bf.chunk for bf in self.boot[1:]])])
-        window = self.initializer(feats, chunks,
-                                  [bf.frame for bf in self.boot])
+        window, cost, status = self._initialize_window(
+            feats, chunks, [bf.frame for bf in self.boot])
         if window is None:
-            self.boot.pop(0)
-            return self._null_output(t, front, status="FAIL_INIT")
+            self.boot.pop(0)   # slide and retry at the next backend frame
+            return self._null_output(t, front, status=status)
 
+        # Re-anchor a re-initialization at the last good pose so the
+        # trajectory does not jump (VINS.cpp:137-142).
         if self._recover_anchor is not None:
             p_anchor, yaw_anchor = self._recover_anchor
             window = _reanchor_window(
@@ -337,14 +350,185 @@ class VinsSystem:
         self.initialized = True
         self.boot.clear()
         self._sync_pnp_from_backend()
-        p_raw = window.p[F - 1].cpu().numpy()
-        q_raw = window.q[F - 1].cpu().numpy()
+        p_raw, q_raw, ntr = _fetch_flat([window.p[F - 1], window.q[F - 1],
+                                         front.n_tracked])
         self._last_good = (p_raw, _np_yaw(q_raw))
         p, q = self._drift_correct(p_raw, q_raw)
         return PipelineOutput(
             t=t, p=p, q=q, p_raw=p_raw, is_keyframe=True,
-            initialized=True, n_tracked=int(front.n_tracked),
-            solver_cost=0.0, loop_hit=None)
+            initialized=True, n_tracked=int(ntr), solver_cost=cost,
+            loop_hit=None)
+
+    def _initialize_window(self, feats: FeatureTable,
+                           chunks: pre_mod.ImuChunk, frames: List[int]):
+        """One bootstrap attempt on the boot window: initialize (seed 0 on
+        every attempt), the accepting refinement solve and its cost gate
+        (VINS.cpp:415-443), or the test seam. Returns (window or None,
+        final cost, status string)."""
+        if self.initializer is not None:
+            window = self.initializer(feats, chunks, frames)
+            return window, 0.0, "" if window is not None else "FAIL_INIT"
+        res = init_mod.initialize(feats, chunks, self.ext, self.cfg, seed=0)
+        if res.status is not init_mod.InitStatus.SUCCESS:
+            return None, 0.0, res.status.name
+        window, cost = init_mod.refine_init_window(res.window, feats, chunks,
+                                                   self.ext, self.cfg)
+        cost = float(cost)
+        if not np.isfinite(cost) or cost > self.cfg.init_max_cost:
+            return None, 0.0, "FAIL_CHECK"
+        return window, cost, ""
+
+    # -- NON_LINEAR, interactive ----------------------------------------------
+
+    def _process_nonlinear(self, img, front, chunk, t,
+                           is_backend_frame) -> PipelineOutput:
+        """An initialized frame (vins_tpu/pipeline.py:482-585): the
+        motion-only solve on every frame; on backend frames the window
+        step with the staged loop constraint, one combined fetch, the
+        failure reset, the loop-edge refinement and TTL, the keyframe
+        insert, and the drift-corrected pose and point cloud."""
+        cfg = self.cfg
+        merged = self._merge_pending(chunk)
+        if self.use_pnp:
+            if self._pnp_preints_stale:
+                self.pnp = self.pnp._replace(
+                    preints=pnp_mod.window_preints(self.pnp, cfg))
+                self._pnp_preints_stale = False
+            # The pnp map lives in backend landmark slot order.
+            obs_l, has_l = stream_mod._gather_by_id(
+                self.est.feats.track_id, front.ids, front.obs,
+                front.obs_valid)
+            self.pnp, (p30, q30, _v30) = pnp_mod.pnp_step(
+                self.pnp, chunk, obs_l, has_l, cfg, self.ext, self.gravity,
+                do_solve=True, update_preints=True)
+
+        if not is_backend_frame:
+            self._pending_chunk = merged
+            if not self.use_pnp:
+                return self._null_output(t, front, initialized=True)
+            p30_h, q30_h, ntr = _fetch_flat([p30, q30, front.n_tracked])
+            p, q = self._drift_correct(p30_h, q30_h)
+            return PipelineOutput(
+                t=t, p=p, q=q, p_raw=p30_h, is_keyframe=False,
+                initialized=True, n_tracked=int(ntr), solver_cost=0.0,
+                loop_hit=None)
+
+        self._pending_chunk = None
+        if self._pending_loop is not None and "dev" not in self._pending_loop:
+            # A constraint staged in block mode: the scan owned it; close
+            # it out with the pose graph.
+            self.loop.optimize()
+            self._pending_loop = None
+        loop_inp = (self._scan_loop() if self._pending_loop is not None
+                    else self._loop_inactive)
+        inp = FrameInput(chunk=merged, ids=front.ids, obs=front.obs,
+                         obs_valid=front.obs_valid, loop=loop_inp)
+        self.est, out = backend_step(self.est, inp, cfg, self.ext,
+                                     self.gravity)
+        (failure, is_kf, pose_p, pose_q, cost, ntr, pts_w, pts_ok,
+         loop_rel_t, loop_rel_yaw, loop_good, loop_support) = _fetch_flat([
+             out.failure, out.is_keyframe, out.pose_p, out.pose_q,
+             out.stats.final_cost, front.n_tracked, out.point_cloud,
+             out.point_valid, out.loop_rel_t, out.loop_rel_yaw,
+             out.loop_good, out.loop_support])
+
+        if bool(failure):
+            self._fail_reset()
+            return self._null_output(t, front, status="FAILURE")
+
+        self._last_good = (pose_p, _np_yaw(pose_q))
+        self._sync_pnp_from_backend()
+
+        # Loop-edge lifecycle (VINS.cpp:663-680, ViewController.mm:850-875):
+        # each good solve refines the edge, re-pointed at the newest
+        # keyframe; the constraint retires when its TTL runs out or too
+        # few matched tracks survive, and the pose graph runs.
+        if self._pending_loop is not None:
+            pl = self._pending_loop
+            if bool(loop_good):
+                e = self.loop.edge_index(pl["edge_abs"])
+                if e >= 0 and self.loop.count >= 1:
+                    self._refine_edge_to_kf(
+                        e, loop_rel_t, float(loop_rel_yaw), pose_p,
+                        _np_yaw(pose_q), self.loop.count - 1)
+                    self.loop_stats["good_frames"] += 1
+            pl["ttl"] -= 1
+            if pl["ttl"] <= 0 or int(loop_support) < 10:
+                self.loop.optimize()
+                self._pending_loop = None
+                self.loop_stats["retired"] += 1
+
+        loop_hit = None
+        if self.use_loop and bool(is_kf):
+            self.kf_count += 1
+            if self.kf_count % cfg.loop.loop_freq == 0:
+                loop_hit = self._handle_keyframe(
+                    img, t, p_host=pose_p, yaw_host=_np_yaw(pose_q))
+
+        p, q = self._drift_correct(pose_p, pose_q)
+        return PipelineOutput(
+            t=t, p=p, q=q, p_raw=pose_p, is_keyframe=bool(is_kf),
+            initialized=True, n_tracked=int(ntr), solver_cost=float(cost),
+            loop_hit=loop_hit,
+            point_cloud=self._drift_correct_points(pts_w), point_valid=pts_ok)
+
+    def _handle_keyframe(self, img, t=0.0, p_host=None,
+                         yaw_host=None) -> Optional[int]:
+        """Insert the keyframe into the loop DB and detect; stage a hit as
+        a loop constraint for the following window solves, or run the
+        pose graph with its detection-time edge when too few of its
+        matches resolve to live landmark slots. Returns the hit's old
+        row."""
+        F = self.cfg.window.num_frames
+        win, tr = self.est.window, self.tracker.state
+        pts_w, w_ok = stream_mod._tracker_world_points(self.est, tr, self.ext)
+        idx = self.loop.add_keyframe(
+            img, win.p[F - 1], win.q[F - 1], tr.pts, tr.valid, pts_w, w_ok,
+            window_ids=tr.ids, t=t, p_host=p_host, yaw_host=yaw_host)
+        hit = self.loop.detect(idx)
+        if hit is None:
+            return None
+        self.loop_stats["hits"] += 1
+        if not self._stage_loop_from_hit(hit):
+            self.loop.optimize()
+        return hit.old_idx
+
+    def _stage_loop_from_hit(self, hit) -> bool:
+        """Stage a verified hit as a LoopInput for the following window
+        solves: join the old keyframe's matched observations to the
+        backend landmark slots by track id. False when fewer than 10
+        resolve; a new hit supersedes (and optimizes) a pending one."""
+        slot_ids = self.est.feats.track_id.cpu().numpy()
+        tids = np.asarray(hit.tids)
+        ok_rows = np.asarray(hit.match_ok) & (tids >= 0)
+        eq = ((slot_ids[:, None] == tids[None, :])
+              & ok_rows[None, :] & (slot_ids[:, None] >= 0))
+        ok_by_slot = eq.any(axis=1)
+        row = eq.argmax(axis=1)
+        obs_by_slot = np.where(ok_by_slot[:, None],
+                               np.asarray(hit.obs_old)[row],
+                               0.0).astype(np.float32)
+        if ok_by_slot.sum() < 10:
+            return False
+        if self._pending_loop is not None:
+            self.loop.optimize()
+        F = self.cfg.window.num_frames
+        dev = self.device
+        self._pending_loop = {
+            "edge_abs": hit.edge_abs, "old_idx": hit.old_idx, "ttl": F,
+            "attached": True,
+            "dev": LoopInput(
+                obs_old=torch.as_tensor(obs_by_slot, device=dev),
+                ok=torch.as_tensor(ok_by_slot, device=dev),
+                ids=torch.as_tensor(slot_ids.astype(np.int32), device=dev),
+                p_init=torch.as_tensor(np.asarray(hit.p_old, np.float32),
+                                       device=dev),
+                q_init=torch.as_tensor(np.asarray(hit.q_old, np.float32),
+                                       device=dev),
+                ttl=torch.full((), F, dtype=torch.int32, device=dev),
+                weight=torch.ones((), device=dev))}
+        self.loop_stats["staged"] += 1
+        return True
 
     def _sync_pnp_from_backend(self):
         if self.use_pnp:
@@ -361,12 +545,23 @@ class VinsSystem:
             tracker=self.tracker.state, pnp=self.pnp, est=self.est,
             pending=pending, has_pending=self._pending_chunk is not None,
             phase=self.frame_idx % self.cfg.freq,
-            loop=(self._loop_dev if self._loop_dev is not None
-                  else self._loop_inactive),
+            loop=self._scan_loop(),
             anchor=(self._anchor_dev if self._anchor_dev is not None
                     else self._anchor_inactive),
             anchor_live=self._anchor_live,
             solver_budget=self.solver_budget)
+
+    def _scan_loop(self) -> LoopInput:
+        """The loop block a scan starts from: a constraint staged on the
+        interactive path re-injected with its host TTL mirror, else the
+        device-carried lifecycle state, else the inactive block."""
+        pl = self._pending_loop
+        if pl is not None and "dev" in pl:
+            return pl["dev"]._replace(ttl=torch.full(
+                (), pl["ttl"], dtype=torch.int32, device=self.device))
+        if self._loop_dev is not None:
+            return self._loop_dev
+        return self._loop_inactive
 
     def dispatch_block(self, imgs: torch.Tensor, chunks: pre_mod.ImuChunk,
                        ts=None, gumbel: Optional[torch.Tensor] = None):
@@ -387,6 +582,8 @@ class VinsSystem:
         self._loop_dev = state2.loop
         self._anchor_dev = state2.anchor
         self._pending_chunk = state2.pending if state2.has_pending else None
+        if self.use_pnp and self.cfg.solver.pnp_stream_solve == "deadreckon":
+            self._pnp_preints_stale = True
         self.frame_idx += n
         self.timings["dispatch"] += time.perf_counter() - t0
         self.timings["blocks"] += 1
@@ -702,7 +899,7 @@ class VinsSystem:
         while i < n:
             if not self.initialized:
                 results.append(self.process_frame(
-                    imgs[i].to(self.device, torch.float32),
+                    imgs[i],
                     pre_mod.ImuChunk(*[x[i] for x in chunks]),
                     t=float(ts[i]) if ts is not None else 0.0,
                     gumbel=None if gumbel is None else gumbel[i]))

@@ -4,7 +4,8 @@ per-frame pipeline (port of vins_tpu/stream.py).
 precompute_block runs CLAHE, the pyramid and the Scharr gradients for
 the whole block in batched ops; vio_scan_step then runs one frame:
 tracking (K1 forward and backward, K2), F-RANSAC, top-up on backend
-frames, the dead-reckoned 30 Hz pose, and on every freq-th frame the
+frames, the 30 Hz pose (dead-reckoned, or solved as
+cfg.solver.pnp_stream_solve asks), and on every freq-th frame the
 ride-time loop attach, the sliding-window backend with the pnp re-sync
 and the loop constraint's lifecycle. The JAX scan's phase, pending-chunk
 flag and solver budget are known on the host here, so the backend branch
@@ -152,6 +153,18 @@ def _sync_pnp(pnp: pnp_mod.PnpWindow, est: BackendState, cfg: VinsConfig,
     return pnp_mod.update_features(pnp, pts_w, valid, track_len)
 
 
+def _tracker_world_points(est: BackendState, tracker: tr_mod.TrackerState,
+                          ext: Extrinsics):
+    """The landmarks' world points in tracker-slot order and which slots
+    have one (what a keyframe insert stores)."""
+    win = est.window
+    pts_w, has = _gather_by_id(
+        tracker.ids, est.feats.track_id,
+        landmark_world_points(win, est.feats, ext),
+        est.feats.valid & (win.inv_depth > 1e-3))
+    return pts_w, has & tracker.valid
+
+
 def _nanmedian(x: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
     """Median of x over sel as jnp.nanmedian takes it (the mean of the
     two middle values for an even count: low*(1-h) + high*h, h = 0 or
@@ -234,10 +247,12 @@ def vio_scan_step(state: ScanState, pyr, grads, img: torch.Tensor,
         mode = cfg.solver.pnp_stream_solve
         obs_l, has_l = _gather_by_id(state.est.feats.track_id, front.ids,
                                      front.obs, front.obs_valid)
+        # "all" solves every frame, "deadreckon" none, any other mode the
+        # frames whose pose the backend does not publish.
         pnp, (p30, q30, _v30) = pnp_mod.pnp_step(
             state.pnp, chunk, obs_l, has_l, cfg, ext, gravity,
             do_solve=(mode == "all"
-                      or (mode == "nonbackend" and not is_backend)),
+                      or (mode != "deadreckon" and not is_backend)),
             update_preints=(mode != "deadreckon"))
     else:
         pnp = state.pnp
@@ -268,12 +283,7 @@ def vio_scan_step(state: ScanState, pyr, grads, img: torch.Tensor,
         # Freeze on failure (the host decides the recovery between blocks).
         est = _sel(out.failure, state.est, est2)
         pnp = _sync_pnp(pnp, est, cfg, ext)
-        win = est.window
-        pts_w = landmark_world_points(win, est.feats, ext)
-        kf_pts_w, has_t = _gather_by_id(
-            tracker.ids, est.feats.track_id, pts_w,
-            est.feats.valid & (win.inv_depth > 1e-3))
-        kf_w_ok = has_t & tracker.valid
+        kf_pts_w, kf_w_ok = _tracker_world_points(est, tracker, ext)
         # Loop-constraint lifecycle: it rides while enough matched tracks
         # survive and its TTL lasts; retirement (or an anchor that expired
         # unattached) triggers the host's pose-graph run.

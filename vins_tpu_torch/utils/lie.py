@@ -131,6 +131,26 @@ def skew(v: torch.Tensor) -> torch.Tensor:
     return m.reshape(v.shape[:-1] + (3, 3))
 
 
+def _quat_mul_matrix(q: torch.Tensor, sign: float) -> torch.Tensor:
+    w, v = q[..., 0], q[..., 1:]
+    top = torch.cat([w[..., None, None], -v[..., None, :]], -1)
+    eye = torch.eye(3, dtype=q.dtype, device=q.device).expand(
+        q.shape[:-1] + (3, 3))
+    bottom = torch.cat([v[..., :, None],
+                        w[..., None, None] * eye + sign * skew(v)], -1)
+    return torch.cat([top, bottom], -2)
+
+
+def quat_left(q: torch.Tensor) -> torch.Tensor:
+    """4x4 matrix with quat_mul(q, p) == quat_left(q) @ p."""
+    return _quat_mul_matrix(q, 1.0)
+
+
+def quat_right(q: torch.Tensor) -> torch.Tensor:
+    """4x4 matrix with quat_mul(p, q) == quat_right(q) @ p."""
+    return _quat_mul_matrix(q, -1.0)
+
+
 def rotmat_to_ypr(R: torch.Tensor) -> torch.Tensor:
     """(yaw, pitch, roll) radians, ZYX convention."""
     yaw = torch.atan2(R[..., 1, 0], R[..., 0, 0])
@@ -154,6 +174,28 @@ def ypr_to_rotmat(ypr: torch.Tensor) -> torch.Tensor:
         -sp, cp * sr, cp * cr,
     ], dim=-1)
     return m.reshape(ypr.shape[:-1] + (3, 3))
+
+
+def gravity_to_rotmat(g: torch.Tensor) -> torch.Tensor:
+    """R0 with R0 @ ĝ = +z and zero yaw (Utility::g2R, used by
+    visualInitialAlign to level the world frame)."""
+    ng1 = g / _norm(g)
+    ng2 = torch.zeros_like(ng1)
+    ng2[..., 2:].fill_(1.0)
+    axis = cross(ng1, ng2)
+    sin_a = _norm(axis)
+    cos_a = torch.sum(ng1 * ng2, -1, keepdim=True)
+    angle = torch.atan2(sin_a, cos_a)
+    # g antiparallel to +z: the cross product vanishes while the angle is
+    # π; the x axis is perpendicular to both.
+    x_axis = torch.zeros_like(ng1)
+    x_axis[..., :1].fill_(1.0)
+    axis = torch.where(sin_a < 1e-6, x_axis,
+                       axis / torch.clamp(sin_a, min=1e-12))
+    R0 = quat_to_rotmat(so3_exp_quat(axis * angle))
+    yaw = rotmat_to_ypr(R0)[..., 0]
+    zero = torch.zeros_like(yaw)
+    return ypr_to_rotmat(torch.stack([-yaw, zero, zero], -1)) @ R0
 
 
 def pose_retract(p: torch.Tensor, q: torch.Tensor, delta: torch.Tensor):
@@ -223,3 +265,30 @@ def np_yaw(q) -> float:
     """Yaw (ZYX) of one wxyz quaternion, on the host."""
     R = np_quat_to_rotmat(q)
     return float(np.arctan2(R[1, 0], R[0, 0]))
+
+
+def np_quat_mul(a, b) -> np.ndarray:
+    """Hamilton product (wxyz), batched."""
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    aw, ax, ay, az = a[..., 0], a[..., 1], a[..., 2], a[..., 3]
+    bw, bx, by, bz = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+    return np.stack([
+        aw * bw - ax * bx - ay * by - az * bz,
+        aw * bx + ax * bw + ay * bz - az * by,
+        aw * by - ax * bz + ay * bw + az * bx,
+        aw * bz + ax * by - ay * bx + az * bw,
+    ], -1).astype(np.float32)
+
+
+def np_so3_exp_quat(theta) -> np.ndarray:
+    """Rotation vector -> wxyz quaternion (so3_exp_quat on the host)."""
+    theta = np.asarray(theta, np.float64)
+    angle_sq = np.sum(theta * theta, -1, keepdims=True)
+    angle = np.sqrt(angle_sq + 1e-24)
+    half = 0.5 * angle
+    small = angle_sq < 1e-12
+    k = np.where(small, 0.5 - angle_sq / 48.0, np.sin(half) / angle)
+    w = np.where(small, 1.0 - angle_sq / 8.0, np.cos(half))
+    q = np.concatenate([w, k * theta], -1)
+    return (q / np.linalg.norm(q, axis=-1, keepdims=True)).astype(np.float32)
