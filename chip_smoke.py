@@ -27,12 +27,22 @@ Phases (any failure exits non-zero, and no result line is printed):
                 words identical, again on a frame that is not 16-byte
                 aligned), timed in turns against the route it replaces
                 (gaussian_blur, then K3's blurred-input entry), and that
-                blurred-input entry alone;
-  4. loop     — the default system, VinsSystem(cfg) with loop closure on,
+                blurred-input entry alone; then klt_fb_ncc and K3 from
+                the raw frame (N = 512 and 128) again at euroc_config()'s
+                shape, a 752x480 frame pair rendered through the EuRoC
+                camera's distortion (row pitches of 3008, 1504 and 752
+                bytes), with the same tolerances;
+  4. loop     — (in a spawned child process, alongside phases 5-8 in this
+                one, so that the script ends well inside its time on a
+                slow host; each process counts its own launches and
+                syncs, and the frames/s of these runs are read under
+                that contention) the default system, VinsSystem(cfg)
+                with loop closure on,
                 at default_config() on bench.py's revisiting circle
                 (w = 0.7, bob 0.15): it bootstraps itself (visual-inertial
                 initialization, no ground truth) within bench.py's 48
-                frames, then 720 frames (2.7 laps) in blocks of 48; fails
+                frames, then 720 frames (2.7 laps) through process_stream
+                at its defaults (blocks of 48, depth 2); fails
                 without finite poses, a verified loop hit, a pose-graph
                 run, a ride-time attach and one fused K3 launch per
                 keyframe insert and attach try (the blurred-input entry
@@ -41,14 +51,28 @@ Phases (any failure exits non-zero, and no result line is printed):
                 slower w = 0.35 circle: initialized by frame 45 and an
                 aligned ATE under 0.15 m (tests/test_stream_parity.py's
                 bounds for the same in-stream bootstrap);
-  6. interactive — VinsSystem(cfg) with loop closure on, frame by frame
+  6. realtime — process_stream(realtime=True, block=12) with the
+                timestamps over the bootstrap and 96 frames of that
+                circle: the solver budget must step from max_iters down
+                to min_iters and stay within them, poses finite;
+  7. interactive — VinsSystem(cfg) with loop closure on, frame by frame
                 through process_frame over 150 frames of the w = 0.35
                 circle: bootstrap, then the 30 Hz motion-only solve on
                 every frame, the backend every third and the loop DB on
                 keyframes; fails unless it initializes, its poses are
                 finite, its aligned ATE is under 0.15 m, klt_fb_ncc
                 launches once per tracked frame and K3 from the raw frame
-                once per keyframe insert.
+                once per keyframe insert;
+  8. euroc    — the EuRoC entry point: the port's ASL fixture writer
+                renders tests/test_euroc_path.py's 360-frame revisit tree
+                on the card into smoke_out/, then
+                vins_tpu_torch.run_euroc.main(--stream --global-ba
+                --loop-freq 1) runs it; fails unless that test's gates
+                hold, klt_fb_ncc launches once per tracked frame and K3
+                from the raw frame once per keyframe insert and attach
+                try, no other kernel; prints the init frame, block
+                frames/s, syncs per block and the device busy share of
+                one steady-state cycle under torch.profiler.
 Every run prints its initialization attempts (frame, status, wall time,
 synchronizing CUDA calls); the interactive run prints the per-frame wall
 time of the motion-only solve, a backend frame and a keyframe insert.
@@ -101,6 +125,26 @@ INIT_AT_MAX_OFF = 45
 # Interactive run: frame by frame on the w = 0.35 circle, well past
 # bootstrap (about 30 frames).
 N_FRAMES_INTERACTIVE = 150
+# EuRoC run: tests/test_euroc_path.py:113-141's revisit tree and gates.
+EUROC_FRAMES = 360
+EUROC_SEED = 9
+EUROC_TRAJ = dict(w=0.42, bob=0.2, bob_w=1.9)
+EUROC_ATE_MAX = 0.18
+EUROC_BLOCK = 48        # run_euroc's process_stream block
+# The loop-on run's process must end within this: about twice what it
+# takes alone where the host runs the port slowest.
+LOOP_ON_TIMEOUT_S = 900
+# Real-time run: the loop-off circle, 96 frames after the bootstrap (by
+# frame 30 in every earlier run) in blocks of 12.
+N_RT_BOOT = 31
+N_RT_AFTER = 96
+N_RT_BLOCK = 12
+# Device busy share: the loop-on run profiles the cycle of its 9th
+# dispatch (steady state, verification under way); the interactive run
+# the first backend frame from frame 100 on and the two 30 Hz frames
+# after it.
+PROFILE_AT = 8
+PROFILE_FRAME = 100
 FLOW_TOL = 1e-3         # px
 NCC_TOL = 1e-4
 OK_AGREE = 0.99
@@ -326,11 +370,12 @@ def _brief_raw_work(raw, pts, valid, pattern) -> dict:
     return dict(raw_px=int(need.sum()), vert_px=int(vert.sum()),
                 blur_px=int(blur.sum()))
 
-def frame_pair(cfg, device):
-    """Two consecutive rendered frames of the loop-off trajectory, the raw
-    first frame and its prep as the main path prepares it (CLAHE, pyramid,
-    Scharr gradients), and 128 slots: Shi–Tomasi corners of the first
-    frame, a third of them dead, plus border points."""
+def frame_pair(cfg, device, distorted: bool = False):
+    """Two consecutive rendered frames of the loop-off trajectory (through
+    the camera's distortion with `distorted`), the raw first frame and its
+    prep as the main path prepares it (CLAHE, pyramid, Scharr gradients),
+    and 128 slots: Shi–Tomasi corners of the first frame, a third of them
+    dead, plus border points."""
     import torch
     from vins_tpu_torch.io import synthetic
     from vins_tpu_torch.ops import corners
@@ -340,7 +385,8 @@ def frame_pair(cfg, device):
         cfg, n_frames=2, n_landmarks=50, seed=SEED, frame_dt=1.0 / 30.0,
         traj_kwargs=TRAJ_OFF, imu_per_frame=4, device=device)
     imgs = synthetic.render_sequence_images(seq, cfg, seed=SEED,
-                                            device=device)
+                                            device=device,
+                                            distorted=distorted)
     pyrs, grads = precompute_block(imgs, cfg)
     M = cfg.frontend.max_features
     resp = corners.shi_tomasi_response(pyrs[0][0])
@@ -384,6 +430,160 @@ def brief_inputs(raw, n: int, device):
     valid = torch.rand(n, generator=gen, device=device) > 0.33
     valid[:8] = True
     return blurred, pts.contiguous(), valid.contiguous()
+
+
+def _check_fb(fb_args, tag: str) -> dict:
+    """klt_fb_ncc against its plain version on the same inputs: points
+    and NCC to FLOW_TOL and NCC_TOL, round trips to 2 FLOW_TOL, the
+    status on OK_AGREE of the slots (fails otherwise)."""
+    import torch
+    from vins_tpu_torch.ops import klt_cuda
+    fb_k = klt_cuda.track_fb(*fb_args)
+    fb_p = klt_cuda.track_fb_plain(*fb_args)
+    torch.cuda.synchronize()
+    agree = float((fb_k[1] == fb_p[1]).float().mean())
+    kept = fb_k[1] & fb_p[1]
+    pts_err = (float((fb_k[0] - fb_p[0])[kept].abs().max())
+               if kept.any() else 0.0)
+    rt_err = (float((fb_k[2] - fb_p[2])[kept].abs().max())
+              if kept.any() else 0.0)
+    ncc_err = float((fb_k[3] - fb_p[3]).abs().max())
+    if agree < 1.0:
+        print(f"{tag}: status differs on slots "
+              f"{torch.nonzero(fb_k[1] != fb_p[1]).flatten().tolist()}")
+    if not (np.isfinite(pts_err) and pts_err <= FLOW_TOL):
+        _fail(f"{tag} points differ from the plain version by {pts_err} px")
+    if not (np.isfinite(rt_err) and rt_err <= 2 * FLOW_TOL):
+        _fail(f"{tag} round trips differ from the plain version by "
+              f"{rt_err} px")
+    if not (np.isfinite(ncc_err) and ncc_err <= NCC_TOL):
+        _fail(f"{tag} NCC differs from the plain version by {ncc_err}")
+    if agree < OK_AGREE:
+        _fail(f"{tag} status agrees on only {agree:.3f} of slots")
+    return dict(out=fb_k, agree=agree, pts_err=pts_err, rt_err=rt_err,
+                ncc_err=ncc_err, kept=int(fb_k[1].sum()))
+
+
+def _fb_bound(fb_args) -> dict:
+    """The least time of one klt_fb_ncc call on these inputs."""
+    import torch
+    from vins_tpu_torch.ops import klt_cuda
+    pyr0, g0, pyr1, g1, pts, valid, win, iters, eps = fb_args[:9]
+    M = pts.shape[0]
+    f4 = 4.0
+    n_live = int(valid.sum())
+    iters_k1 = []
+    p_p, ok_p, e_p = klt_cuda.track_pyramid_plain(
+        pyr0, g0, pyr1, pts, valid, win, iters, eps, iters_run=iters_k1)
+    # Bytes: per level, the union of the windows the two passes and the
+    # NCC need in each plane: the prev frame under the forward templates
+    # (live slots), the backward pass's tracked windows (slots live there)
+    # and, at level 0, the NCC window of every slot; the next frame
+    # likewise; the gradients under their pass's templates. Operations:
+    # both passes' setups and this run's iterations, the NCC statistics
+    # of every slot, and the level-0 template taps of slots whose pass
+    # does not run (the NCC still needs them).
+    fwd_st = klt_cuda.post_filter(p_p, ok_p, e_p, valid, pyr1[0].shape)
+    iters_bwd = []
+    p_b, _, _ = klt_cuda.track_pyramid_plain(
+        pyr1, g1, pyr0, p_p, fwd_st, win, iters, eps, init_flow=pts - p_p,
+        iters_run=iters_bwd)
+    n_bwd = int(fwd_st.sum())
+    fb_px = 0
+    for lvl in range(len(pyr0)):
+        s = 2.0 ** lvl
+        ncc_a = pts if lvl == 0 else pts[:0]
+        ncc_b = p_p if lvl == 0 else p_p[:0]
+        fb_px += _window_pixels(pyr0[lvl], torch.cat(
+            [pts[valid] / s, p_b[fwd_st] / s, ncc_a]), win)
+        fb_px += _window_pixels(pyr1[lvl], torch.cat(
+            [p_p[valid] / s, p_p[fwd_st] / s, ncc_b]), win)
+        fb_px += 2 * _window_pixels(pyr0[lvl], pts[valid] / s, win)
+        fb_px += 2 * _window_pixels(pyr1[lvl], p_p[fwd_st] / s, win)
+    area = win * win
+    return _bound(fb_px * f4 + M * (8 + 1) + M * (8 + 1 + 4 + 4),
+                  _klt_ops(iters_k1, [n_live] * len(pyr0), win)
+                  + _klt_ops(iters_bwd, [n_bwd] * len(pyr0), win)
+                  + M * area * (NCC_OPS - 2 * TAP_OPS)
+                  + (2 * M - n_live - n_bwd) * area * TAP_OPS)
+
+
+def _k3_raw(raw, n: int, device, pattern, taps, turns: bool = True) -> dict:
+    """K3 from the raw frame at N = n keypoints (brief_inputs): its words
+    against its plain version bit for bit, on the raw frame and on a copy
+    that is not 16-byte aligned, and against gaussian_blur + the
+    blurred-input entry (fails otherwise); its device, call and plain
+    times and its bound, and with `turns` the two routes timed in turns
+    (fused, blur + K3, blur + K3, fused)."""
+    import torch
+    from vins_tpu_torch.ops import brief_cuda, image
+    _, kp, kv = brief_inputs(raw, n, device)
+    raw_shifted = _shifted(raw)
+
+    def fused(img=raw):
+        return brief_cuda.extract_brief_raw(img, kp, kv, pattern, taps)
+
+    def fused_plain(img=raw):
+        return brief_cuda.extract_brief_raw_plain(img, kp, kv, pattern, taps)
+
+    def blur_words():
+        return brief_cuda.extract_brief_words(
+            image.gaussian_blur(raw, 2.0).contiguous(), kp, kv, pattern)
+
+    checks = (
+        ("K3 from the raw frame against its plain version", fused(),
+         fused_plain()),
+        ("K3 from a raw frame not 16-byte aligned against its plain "
+         "version", fused(raw_shifted), fused_plain(raw_shifted)),
+        ("K3 from the raw frame against gaussian_blur + K3", fused(),
+         blur_words()))
+    torch.cuda.synchronize()
+    for what, w_k, w_p in checks:
+        n_diff = int((w_k != w_p).sum())
+        if n_diff:
+            _fail(f"{what}: {n_diff} of {w_k.numel()} words differ at "
+                  f"N = {n} on a {tuple(raw.shape)} frame")
+    # The raw pixels the taps need through the blur's footprint, the two
+    # passes' outputs they need (BLUR_OPS each) and the taps.
+    work = _brief_raw_work(raw, kp, kv, pattern)
+    bound = _bound(work["raw_px"] * 4.0 + n * (8 + 1) + pattern.numel() * 4
+                   + len(taps) * 4 + n * brief_cuda.BRIEF_WORDS * 4,
+                   BLUR_OPS * (work["vert_px"] + work["blur_px"])
+                   + int(kv.sum()) * brief_cuda.BRIEF_BITS
+                   * (2 * TAP_OPS + 1))
+    if not turns:
+        return dict(**_timed(fused, "brief_words_kernel"),
+                    plain_ms=_call_ms(fused_plain), work=work, **bound)
+    k3_turns = [_timed(fused, "brief_words_kernel"),
+                _timed(blur_words, ""), _timed(blur_words, ""),
+                _timed(fused, "brief_words_kernel")]
+    return dict(**_mean_timed(k3_turns[0], k3_turns[3]),
+                plain_ms=_call_ms(fused_plain),
+                blur_words=_mean_timed(k3_turns[1], k3_turns[2]),
+                turns=k3_turns, work=work, **bound)
+
+
+def _shifted(x):
+    """A copy of x that is not 16-byte aligned."""
+    import torch
+    y = torch.empty(x.numel() + 1, device=x.device)[1:].view(x.shape)
+    return y.copy_(x)
+
+
+KLT_SRC = "vins_tpu_torch/csrc/klt.cu"
+BRIEF_SRC = "vins_tpu_torch/csrc/brief.cu"
+
+
+def _entry(name, source, replaces, err, t, plain_ms, bound, **extra):
+    """One kernel's record on the `kernels` line (launches filled in
+    after the system runs)."""
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=0, max_abs_err=err, ms=t["ms"], call_ms=t["call_ms"],
+                profiler_ms=t["profiler_ms"], plain_ms=plain_ms,
+                bound_ms=bound["bound_ms"], bound_us=bound["bound_us"],
+                bound_by=bound["bound_by"], bound_bytes=bound["bytes"],
+                bound_operations=bound["operations"], library_ms=None,
+                **extra)
 
 
 def kernel_phase(cfg, device) -> list:
@@ -486,39 +686,15 @@ def kernel_phase(cfg, device) -> list:
     # seeded as above, K2.
     fb_args = (pyr0, g0, pyr1, g1, pts, valid, win, iters, eps, FB_THRESH,
                klt.NCC_MIN)
-    fb_k = klt_cuda.track_fb(*fb_args)
-    fb_p = klt_cuda.track_fb_plain(*fb_args)
-    torch.cuda.synchronize()
-    fb_agree = float((fb_k[1] == fb_p[1]).float().mean())
-    kept = fb_k[1] & fb_p[1]
-    fb_pts_err = (float((fb_k[0] - fb_p[0])[kept].abs().max())
-                  if kept.any() else 0.0)
-    fb_rt_err = (float((fb_k[2] - fb_p[2])[kept].abs().max())
-                 if kept.any() else 0.0)
-    fb_ncc_err = float((fb_k[3] - fb_p[3]).abs().max())
-    if fb_agree < 1.0:
-        print(f"klt_fb_ncc: status differs on slots "
-              f"{torch.nonzero(fb_k[1] != fb_p[1]).flatten().tolist()}")
-    if not (np.isfinite(fb_pts_err) and fb_pts_err <= FLOW_TOL):
-        _fail(f"klt_fb_ncc points differ from the plain version by "
-              f"{fb_pts_err} px")
-    if not (np.isfinite(fb_rt_err) and fb_rt_err <= 2 * FLOW_TOL):
-        _fail(f"klt_fb_ncc round trips differ from the plain version by "
-              f"{fb_rt_err} px")
-    if not (np.isfinite(fb_ncc_err) and fb_ncc_err <= NCC_TOL):
-        _fail(f"klt_fb_ncc NCC differs from the plain version by "
-              f"{fb_ncc_err}")
-    if fb_agree < OK_AGREE:
-        _fail(f"klt_fb_ncc status agrees on only {fb_agree:.3f} of slots")
+    fbc = _check_fb(fb_args, "klt_fb_ncc")
+    fb_k, fb_agree = fbc["out"], fbc["agree"]
+    fb_pts_err, fb_rt_err, fb_ncc_err = (fbc["pts_err"], fbc["rt_err"],
+                                         fbc["ncc_err"])
     # Planes that are not 16-byte aligned take the kernel's 4-byte copies
     # into the same shared-memory layout: the same bits must come out.
-    def shifted(x):
-        y = torch.empty(x.numel() + 1, device=x.device)[1:].view(x.shape)
-        return y.copy_(x)
-
     fb_shifted = klt_cuda.track_fb(
-        [shifted(p) for p in pyr0], [tuple(map(shifted, g)) for g in g0],
-        [shifted(p) for p in pyr1], [tuple(map(shifted, g)) for g in g1],
+        [_shifted(p) for p in pyr0], [tuple(map(_shifted, g)) for g in g0],
+        [_shifted(p) for p in pyr1], [tuple(map(_shifted, g)) for g in g1],
         *fb_args[4:])
     if not all(torch.equal(a, b) for a, b in zip(fb_shifted, fb_k)):
         _fail("klt_fb_ncc differs on planes that are not 16-byte aligned")
@@ -539,37 +715,7 @@ def kernel_phase(cfg, device) -> list:
     t_fb = _mean_timed(turns[0], turns[3])
     t_three = _mean_timed(turns[1], turns[2])
     ms_pfb = _call_ms(lambda: klt_cuda.track_fb_plain(*fb_args), reps=5)
-    # Bytes: per level, the union of the windows the two passes and the
-    # NCC need in each plane: the prev frame under the forward templates
-    # (live slots), the backward pass's tracked windows (slots live there)
-    # and, at level 0, the NCC window of every slot; the next frame
-    # likewise; the gradients under their pass's templates. Operations:
-    # both passes' setups and this run's iterations, the NCC statistics
-    # of every slot, and the level-0 template taps of slots whose pass
-    # does not run (the NCC still needs them).
-    fwd_st = klt_cuda.post_filter(p_p, ok_p, e_p, valid, pyr1[0].shape)
-    iters_bwd = []
-    p_b, _, _ = klt_cuda.track_pyramid_plain(
-        pyr1, g1, pyr0, p_p, fwd_st, win, iters, eps, init_flow=pts - p_p,
-        iters_run=iters_bwd)
-    n_bwd = int(fwd_st.sum())
-    fb_px = 0
-    for lvl in range(len(pyr0)):
-        s = 2.0 ** lvl
-        ncc_a = pts if lvl == 0 else pts[:0]
-        ncc_b = p_p if lvl == 0 else p_p[:0]
-        fb_px += _window_pixels(pyr0[lvl], torch.cat(
-            [pts[valid] / s, p_b[fwd_st] / s, ncc_a]), win)
-        fb_px += _window_pixels(pyr1[lvl], torch.cat(
-            [p_p[valid] / s, p_p[fwd_st] / s, ncc_b]), win)
-        fb_px += 2 * _window_pixels(pyr0[lvl], pts[valid] / s, win)
-        fb_px += 2 * _window_pixels(pyr1[lvl], p_p[fwd_st] / s, win)
-    area = win * win
-    b_fb = _bound(fb_px * f4 + M * (8 + 1) + M * (8 + 1 + 4 + 4),
-                  _klt_ops(iters_k1, [n_live] * len(pyr0), win)
-                  + _klt_ops(iters_bwd, [n_bwd] * len(pyr0), win)
-                  + M * area * (NCC_OPS - 2 * TAP_OPS)
-                  + (2 * M - n_live - n_bwd) * area * TAP_OPS)
+    b_fb = _fb_bound(fb_args)
 
     # K3 at the keyframe-insert shape (N = 512) and the attach shape
     # (N = 128). The raw-frame entry that extract_brief calls must give the
@@ -582,56 +728,18 @@ def kernel_phase(cfg, device) -> list:
     # indices before any graph capture.
     pattern = brief.pattern_tensor(device)
     taps = image.gaussian_taps(2.0)
-    raw_shifted = shifted(raw)
     k3, k3r = {}, {}
     for n in (cfg.loop.max_kf_features, fe.max_features):
+        k3r[n] = _k3_raw(raw, n, device, pattern, taps)
         blurred, kp, kv = brief_inputs(raw, n, device)
         args = (blurred, kp, kv, pattern)
-
-        def fused(img=raw):
-            return brief_cuda.extract_brief_raw(img, kp, kv, pattern, taps)
-
-        def fused_plain(img=raw):
-            return brief_cuda.extract_brief_raw_plain(img, kp, kv, pattern,
-                                                      taps)
-
-        def blur_words():
-            return brief_cuda.extract_brief_words(
-                image.gaussian_blur(raw, 2.0).contiguous(), kp, kv, pattern)
-
-        checks = (
-            ("K3 against its plain version",
-             brief_cuda.extract_brief_words(*args),
-             brief_cuda.extract_brief_words_plain(*args)),
-            ("K3 from the raw frame against its plain version", fused(),
-             fused_plain()),
-            ("K3 from a raw frame not 16-byte aligned against its plain "
-             "version", fused(raw_shifted), fused_plain(raw_shifted)),
-            ("K3 from the raw frame against gaussian_blur + K3", fused(),
-             blur_words()))
+        w_k = brief_cuda.extract_brief_words(*args)
+        w_p = brief_cuda.extract_brief_words_plain(*args)
         torch.cuda.synchronize()
-        for what, w_k, w_p in checks:
-            n_diff = int((w_k != w_p).sum())
-            if n_diff:
-                _fail(f"{what}: {n_diff} of {w_k.numel()} words differ at "
-                      f"N = {n}")
-        k3_turns = [_timed(fused, "brief_words_kernel"),
-                    _timed(blur_words, ""), _timed(blur_words, ""),
-                    _timed(fused, "brief_words_kernel")]
-        # The raw pixels the taps need through the blur's footprint, the
-        # two passes' outputs they need (BLUR_OPS each) and the taps.
-        work = _brief_raw_work(raw, kp, kv, pattern)
-        k3r[n] = dict(
-            **_mean_timed(k3_turns[0], k3_turns[3]),
-            plain_ms=_call_ms(fused_plain),
-            blur_words=_mean_timed(k3_turns[1], k3_turns[2]),
-            turns=k3_turns,
-            work=work,
-            **_bound(work["raw_px"] * f4 + n * (8 + 1) + pattern.numel() * 4
-                     + len(taps) * 4 + n * brief_cuda.BRIEF_WORDS * 4,
-                     BLUR_OPS * (work["vert_px"] + work["blur_px"])
-                     + int(kv.sum()) * brief_cuda.BRIEF_BITS
-                     * (2 * TAP_OPS + 1)))
+        n_diff = int((w_k != w_p).sum())
+        if n_diff:
+            _fail(f"K3 against its plain version: {n_diff} of "
+                  f"{w_k.numel()} words differ at N = {n}")
         # Only valid rows need their taps read and compared.
         k3[n] = dict(
             **_timed(lambda: brief_cuda.extract_brief_words(*args),
@@ -681,22 +789,9 @@ def kernel_phase(cfg, device) -> list:
               f"plain {r['plain_ms']:.4f} ms, bound {r['bound_us']:.3f} us "
               f"({r['bound_by']})")
 
-    def entry(name, source, replaces, err, t, plain_ms, bound, **extra):
-        return dict(name=name, route="cuda", source=source,
-                    replaces=replaces, launches=0, max_abs_err=err,
-                    ms=t["ms"], call_ms=t["call_ms"],
-                    profiler_ms=t["profiler_ms"], plain_ms=plain_ms,
-                    bound_ms=bound["bound_ms"],
-                    bound_us=bound["bound_us"], bound_by=bound["bound_by"],
-                    bound_bytes=bound["bytes"],
-                    bound_operations=bound["operations"],
-                    library_ms=None, **extra)
-
-    klt_src = "vins_tpu_torch/csrc/klt.cu"
-    brief_src = "vins_tpu_torch/csrc/brief.cu"
     ins, att = k3r[n_ins], k3r[n_att]
     return [
-        entry("klt_fb_ncc", klt_src, "vins_tpu/ops/klt_pallas.py:281",
+        _entry("klt_fb_ncc", KLT_SRC, "vins_tpu/ops/klt_pallas.py:281",
               max(fb_pts_err, fb_ncc_err), t_fb, ms_pfb, b_fb,
               also_replaces="vins_tpu/ops/klt_pallas.py:387",
               status_agree=fb_agree, round_trip_err=fb_rt_err,
@@ -705,11 +800,11 @@ def kernel_phase(cfg, device) -> list:
               three_launches_ms=t_three["ms"],
               three_launches_call_ms=t_three["call_ms"],
               three_launches_profiler_ms=t_three["profiler_ms"]),
-        entry("klt_pyramid", klt_src, "vins_tpu/ops/klt_pallas.py:281",
+        _entry("klt_pyramid", KLT_SRC, "vins_tpu/ops/klt_pallas.py:281",
               flow_err, t_k1, ms_p1, b_k1, on_main_path=False),
-        entry("patch_ncc", klt_src, "vins_tpu/ops/klt_pallas.py:387",
+        _entry("patch_ncc", KLT_SRC, "vins_tpu/ops/klt_pallas.py:387",
               ncc_err, t_k2, ms_p2, b_k2, on_main_path=False),
-        entry("brief_raw_words", brief_src, "vins_tpu/ops/klt_pallas.py:344",
+        _entry("brief_raw_words", BRIEF_SRC, "vins_tpu/ops/klt_pallas.py:344",
               0.0, ins, ins["plain_ms"], ins,
               also_replaces="vins_tpu/ops/image.py:70",
               blur_then_words_ms=ins["blur_words"]["ms"],
@@ -729,14 +824,75 @@ def kernel_phase(cfg, device) -> list:
               turns_ms_attach=[t["ms"] for t in att["turns"]],
               turns_call_ms_attach=[t["call_ms"] for t in att["turns"]],
               work_attach=att["work"]),
-        entry("brief_words", brief_src, "vins_tpu/ops/klt_pallas.py:344",
+        _entry("brief_words", BRIEF_SRC, "vins_tpu/ops/klt_pallas.py:344",
               0.0, k3[n_ins], k3[n_ins]["plain_ms"], k3[n_ins],
               on_main_path=False,
               ms_attach=k3[n_att]["ms"], call_ms_attach=k3[n_att]["call_ms"],
               plain_ms_attach=k3[n_att]["plain_ms"],
               bound_ms_attach=k3[n_att]["bound_ms"]),
-        entry("klt_level", klt_src, "vins_tpu/ops/klt_pallas.py:134",
+        _entry("klt_level", KLT_SRC, "vins_tpu/ops/klt_pallas.py:134",
               k4_err, t_k4, ms_p4, b_k4, on_main_path=False),
+    ]
+
+
+def euroc_kernel_phase(cfg, device) -> list:
+    """klt_fb_ncc and K3 from the raw frame at euroc_config()'s shape: a
+    752x480 frame pair rendered through the camera's radial-tangential
+    distortion, 128 slots, 3 levels (752x480, 376x240, 188x120), K3 at
+    N = 512 and 128; each against its plain version with kernel_phase's
+    tolerances (K3's words bit for bit), with its device, call and plain
+    times and its bound."""
+    import torch
+    from vins_tpu_torch.ops import brief, image, klt, klt_cuda
+
+    fe = cfg.frontend
+    pyr0, g0, pyr1, g1, pts, valid, raw = frame_pair(cfg, device,
+                                                     distorted=True)
+    # Rows of 3008, 1504 and 752 bytes: the kernels' 16-byte copies.
+    pitches = [int(p.stride(0)) * p.element_size() for p in pyr0 + pyr1]
+    if any(b % 16 for b in pitches):
+        _fail(f"EuRoC pyramid row pitches {pitches} are not 16-byte "
+              f"multiples")
+    shapes = [tuple(p.shape) for p in pyr0]
+    fb_args = (pyr0, g0, pyr1, g1, pts, valid, fe.klt_window, fe.klt_iters,
+               fe.klt_eps, FB_THRESH, klt.NCC_MIN)
+    fbc = _check_fb(fb_args, "klt_fb_ncc at 752x480")
+    t_fb = _timed(lambda: klt_cuda.track_fb(*fb_args), "klt_fb_ncc_kernel")
+    ms_pfb = _call_ms(lambda: klt_cuda.track_fb_plain(*fb_args), reps=5)
+    b_fb = _fb_bound(fb_args)
+    pattern = brief.pattern_tensor(device)
+    taps = image.gaussian_taps(2.0)
+    n_ins, n_att = cfg.loop.max_kf_features, fe.max_features
+    k3r = {n: _k3_raw(raw, n, device, pattern, taps, turns=False)
+           for n in (n_ins, n_att)}
+    print(f"klt_fb_ncc at 752x480 (levels {shapes}, row pitches "
+          f"{pitches[:3]} B): pts err {fbc['pts_err']:.3g} px, round-trip "
+          f"err {fbc['rt_err']:.3g} px, ncc err {fbc['ncc_err']:.3g}, "
+          f"status agree {fbc['agree']:.4f} ({fbc['kept']} kept of "
+          f"{int(valid.sum())} live); {_ms_text(t_fb)} vs plain "
+          f"{ms_pfb:.4f} ms, bound {b_fb['bound_us']:.3f} us "
+          f"({b_fb['bound_by']})")
+    for n, r in k3r.items():
+        print(f"K3 brief_raw_words at 752x480 N={n}: words identical "
+              f"(aligned, misaligned, and to gaussian_blur + K3); "
+              f"{_ms_text(r)} vs plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_us']:.3f} us ({r['bound_by']}; {r['work']})")
+    ins, att = k3r[n_ins], k3r[n_att]
+    return [
+        _entry("klt_fb_ncc@752x480", KLT_SRC,
+               "vins_tpu/ops/klt_pallas.py:281",
+               max(fbc["pts_err"], fbc["ncc_err"]), t_fb, ms_pfb, b_fb,
+               also_replaces="vins_tpu/ops/klt_pallas.py:387",
+               status_agree=fbc["agree"], round_trip_err=fbc["rt_err"],
+               levels=shapes),
+        _entry("brief_raw_words@752x480", BRIEF_SRC,
+               "vins_tpu/ops/klt_pallas.py:344", 0.0, ins, ins["plain_ms"],
+               ins, also_replaces="vins_tpu/ops/image.py:70",
+               work=ins["work"], ms_attach=att["ms"],
+               profiler_ms_attach=att["profiler_ms"],
+               call_ms_attach=att["call_ms"], plain_ms_attach=att["plain_ms"],
+               bound_ms_attach=att["bound_ms"],
+               bound_by_attach=att["bound_by"], work_attach=att["work"]),
     ]
 
 
@@ -818,10 +974,10 @@ def _record_attempts(sys_, counter: _SyncCounter, sync) -> list:
     return attempts
 
 
-def _stream_counting_syncs(sys_, stream, counter: _SyncCounter):
-    """Run stream() with the counter active, and split its count at the
-    start of each dispatch_block and of the end-of-stream drain. Returns
-    stream()'s result and one record per segment: its syncs and the
+def _mark_segments(sys_, counter: _SyncCounter):
+    """Split the counter's record at the start of each dispatch_block and
+    of each end-of-stream drain of sys_. Returns finish(), which restores
+    the two methods and returns one record per segment: its syncs and the
     verified hits, PACK_LGOOD frames and pose-graph runs it added."""
     marks = []
 
@@ -838,19 +994,94 @@ def _stream_counting_syncs(sys_, stream, counter: _SyncCounter):
 
     sys_.dispatch_block = marked("block", sys_.dispatch_block)
     sys_.drain_loop_work = marked("drain", sys_.drain_loop_work)
+
+    def finish():
+        del sys_.dispatch_block, sys_.drain_loop_work
+        ends = [(at, st) for _, at, st in marks[1:]] + [(counter.mark(),
+                                                         loop_state())]
+        return [dict(kind=kind, syncs=counter.count(at, at_end),
+                     hits=st_end[0] - st[0],
+                     attach_frames=st_end[1] - st[1],
+                     pose_graph_runs=st_end[2] - st[2])
+                for (kind, at, st), (at_end, st_end) in zip(marks, ends)]
+
+    return finish
+
+
+def _stream_counting_syncs(sys_, stream, counter: _SyncCounter,
+                           profile_at=None):
+    """Run stream() with sys_'s segments marked (_mark_segments) and, with
+    profile_at, the cycle of that dispatch profiled (_BlockProfiler);
+    returns stream()'s result, the segment records and the profiled
+    cycle (None without one)."""
+    finish = _mark_segments(sys_, counter)
+    prof = _BlockProfiler(sys_, profile_at) if profile_at is not None \
+        else None
     try:
         out = stream()
     finally:
-        del sys_.dispatch_block, sys_.drain_loop_work
-    ends = [(at, st) for _, at, st in marks[1:]] + [(counter.mark(),
-                                                     loop_state())]
-    segments = []
-    for (kind, at, st), (at_end, st_end) in zip(marks, ends):
-        segments.append(dict(
-            kind=kind, syncs=counter.count(at, at_end),
-            hits=st_end[0] - st[0], attach_frames=st_end[1] - st[1],
-            pose_graph_runs=st_end[2] - st[2]))
-    return out, segments
+        segments = finish()
+    return out, segments, prof.result if prof is not None else None
+
+
+class _BlockProfiler:
+    """Record the start of every dispatch_block of sys_, and profile one
+    steady-state cycle of the depth-2 stream under torch.profiler (CUDA
+    activity only): from the start of dispatch `at` to the start of the
+    next, i.e. that dispatch and the sync, keyframe insert and publish of
+    the block before it. busy_share is the device time of its kernels,
+    copies and sets over the profiled wall (the profiler's own host cost
+    is in that wall). Install after _mark_segments: its finish() removes
+    both wrappers."""
+
+    def __init__(self, sys_, at: int = 3):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+        self.starts, self.result, self._prof = [], None, None
+        dispatch = sys_.dispatch_block
+
+        def call(*args, **kwargs):
+            k = len(self.starts)
+            if self._prof is not None:
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - self._t0
+                self._prof.__exit__(None, None, None)
+                self.result = dict(block=k - 1, wall_s=wall,
+                                   busy_s=_device_busy_s(self._prof))
+                self.result["busy_share"] = (self.result["busy_s"]
+                                             / wall if wall > 0 else None)
+                self._prof = None
+            self.starts.append(time.perf_counter())
+            if k == at:
+                torch.cuda.synchronize()
+                self._prof = profile(activities=[ProfilerActivity.CUDA])
+                self._prof.__enter__()
+                self._t0 = time.perf_counter()
+            return dispatch(*args, **kwargs)
+
+        sys_.dispatch_block = call
+
+
+def _unprofiled_rate(frames: int, seconds: float, profiled,
+                     block: int) -> float:
+    """Block-mode frames/s with the profiled cycle (one block's frames and
+    its wall, torch.profiler and its synchronizations included) left out."""
+    if profiled is not None:
+        frames, seconds = frames - block, seconds - profiled["wall_s"]
+    return frames / seconds if seconds > 0 else 0.0
+
+
+def _device_busy_s(prof) -> float:
+    """Seconds of device activity in a torch.profiler trace."""
+    import torch
+    cuda = torch.autograd.DeviceType.CUDA
+    try:
+        events = prof.profiler.kineto_results.events()
+        return sum(e.duration_ns() for e in events
+                   if e.device_type() == cuda) / 1e9
+    except AttributeError:
+        return sum(e.time_range.elapsed_us() for e in prof.events()
+                   if e.device_type == cuda) / 1e6
 
 
 def _sync_summary(segments) -> dict:
@@ -874,11 +1105,13 @@ def _sync_summary(segments) -> dict:
 
 
 def slice_phase(cfg, device, use_loop: bool, traj: dict, n_frames: int,
-                block: int = BLOCK, max_init_at=None) -> dict:
+                block: int = BLOCK, max_init_at=None,
+                profile_at=None) -> dict:
     """Drive VinsSystem.process_stream over a rendered sequence, the
     system bootstrapping itself (failing if that takes past frame
     max_init_at); returns the measurements, the initialization attempts
-    and the synchronizing CUDA calls per block included. Runs on any
+    and the synchronizing CUDA calls per block included, and with
+    profile_at the device busy share of that dispatch's cycle. Runs on any
     device (the CPU takes the kernels' plain versions, and launch and
     sync counts stay 0 there)."""
     import torch
@@ -915,10 +1148,10 @@ def slice_phase(cfg, device, use_loop: bool, traj: dict, n_frames: int,
     try:
         with _SyncCounter(on_card) as counter:
             attempts = _record_attempts(sys_, counter, sync)
-            outs, segments = _stream_counting_syncs(
+            outs, segments, profiled = _stream_counting_syncs(
                 sys_, lambda: sys_.process_stream(imgs, seq.chunks,
                                                   block=block, ts=ts),
-                counter)
+                counter, profile_at=profile_at if on_card else None)
         sync()
     finally:
         stream_mod._attach_loop = attach
@@ -957,14 +1190,15 @@ def slice_phase(cfg, device, use_loop: bool, traj: dict, n_frames: int,
         wall_s=wall, render_s=render_s,
         system_frames_per_s=n_frames / wall,
         block_frames=n_stream, block_s=block_s,
-        block_frames_per_s=n_stream / block_s if block_s > 0 else 0.0,
+        block_frames_per_s=_unprofiled_rate(n_stream, block_s, profiled,
+                                            block),
         blocks=sys_.timings["blocks"], timings=dict(sys_.timings),
         keyframe_syncs_per_block=((sys_.timings["host_syncs"]
                                    - sys_.timings["blocks"])
                                   / max(sys_.timings["blocks"], 1)),
         launches=launches, attach_tries=attach_tries,
         syncs=_sync_summary(segments),
-        sync_segments=segments)
+        sync_segments=segments, profiled_cycle=profiled)
     if use_loop:
         lc = sys_.loop
         res.update(loop_stats=dict(sys_.loop_stats),
@@ -1003,6 +1237,204 @@ def slice_phase(cfg, device, use_loop: bool, traj: dict, n_frames: int,
     return res
 
 
+def euroc_phase(device) -> dict:
+    """The EuRoC entry point on the card: the port's generate_asl_fixture
+    writes tests/test_euroc_path.py's revisit tree (360 frames at 20 Hz,
+    seed 9, w = 0.42, bob 0.2, bob_w 1.9; frames rendered on the card,
+    distorted 752x480 PNGs) under smoke_out/, then run_euroc.main runs it
+    with --stream --global-ba --loop-freq 1. Fails unless the test's gates
+    hold (359 frames, a loop hit, the ATE bounds, the keyframe ATE before
+    and after the global BA), klt_fb_ncc launched once per tracked frame
+    and K3 from the raw frame once per keyframe insert and attach try,
+    with no other kernel. Also returns the init frame, block frames/s,
+    syncs per block and the device busy share of one profiled
+    steady-state cycle. Runs on any device (launch and sync counts and
+    the profile only on the card)."""
+    import shutil
+
+    import torch
+    from vins_tpu_torch import euroc_config, run_euroc
+    from vins_tpu_torch import stream as stream_mod
+    from vins_tpu_torch.io import euroc as euroc_mod
+    from vins_tpu_torch.io.asl_fixture import generate_asl_fixture
+
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    root = os.path.join("smoke_out", "euroc_fixture")
+    out = os.path.join("smoke_out", "euroc_out")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    generate_asl_fixture(root, euroc_config(), n_frames=EUROC_FRAMES,
+                         cam_hz=20.0, seed=EUROC_SEED,
+                         traj_kwargs=EUROC_TRAJ, device=device)
+    fixture_s = time.perf_counter() - t0
+
+    made, hooks = [], {}
+    make = run_euroc.VinsSystem
+    counter = _SyncCounter(on_card)
+    # Seconds spent decoding PNGs and in the end-of-run global BA.
+    spent = {"png": 0.0, "global_ba": 0.0}
+
+    def timed(fn, key):
+        def call(*args, **kwargs):
+            sync()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            sync()
+            spent[key] += time.perf_counter() - t
+            return out
+        return call
+
+    def system(*args, **kwargs):
+        sys_ = make(*args, **kwargs)
+        made.append(sys_)
+        hooks["finish"] = _mark_segments(sys_, counter)
+        if on_card:
+            hooks["profiler"] = _BlockProfiler(sys_)
+        if sys_.loop is not None:
+            sys_.loop.global_ba = timed(sys_.loop.global_ba, "global_ba")
+        return sys_
+
+    load_png = euroc_mod.load_gray_png
+
+    attach = stream_mod._attach_loop
+    attach_tries = 0
+
+    def counted_attach(*args, **kwargs):
+        nonlocal attach_tries
+        attach_tries += 1
+        return attach(*args, **kwargs)
+
+    run_euroc.VinsSystem = system
+    stream_mod._attach_loop = counted_attach
+    euroc_mod.load_gray_png = timed(load_png, "png")
+    _reset_counts()
+    t0 = time.perf_counter()
+    try:
+        with counter:
+            result = run_euroc.main(
+                ["--root", root, "--stream", "--global-ba", "--loop-freq",
+                 "1", "--out", out, "--device", str(device)])
+        sync()
+    finally:
+        run_euroc.VinsSystem = make
+        stream_mod._attach_loop = attach
+        euroc_mod.load_gray_png = load_png
+    wall = time.perf_counter() - t0
+    launches = _read_counts()
+    sys_ = made[0]
+    segments = hooks["finish"]()
+    prof = hooks.get("profiler")
+
+    gates = [
+        ("frames == 359", result["frames"] == EUROC_FRAMES - 1),
+        ("ate_rmse present", "ate_rmse" in result),
+        ("loop_hits >= 1", result.get("loop_hits", 0) >= 1),
+        ("ate_rmse < 0.18", result.get("ate_rmse", 1e9) < EUROC_ATE_MAX),
+        ("ate_rmse <= 1.05 ate_rmse_raw + 1e-3",
+         result.get("ate_rmse", 1e9)
+         <= 1.05 * result.get("ate_rmse_raw", 0.0) + 1e-3),
+        ("kf_ate_pre_ba <= 1.02 kf_ate_raw",
+         result.get("kf_ate_pre_ba", 1e9)
+         <= 1.02 * result.get("kf_ate_raw", 0.0)),
+        ("global_ba_cost present",
+         result.get("global_ba_cost") is not None),
+        ("kf_ate_post_ba <= 1.1 kf_ate_pre_ba + 5e-3",
+         result.get("kf_ate_post_ba", 1e9)
+         <= 1.1 * result.get("kf_ate_pre_ba", 0.0) + 5e-3),
+    ]
+    print(f"euroc: {result}")
+    failed = [g for g, ok in gates if not ok]
+    if failed:
+        _fail(f"EuRoC gates failed: {failed} ({result})")
+    lc = sys_.loop
+    tracked = result["frames"] - 1          # the first frame only detects
+    n_brief = lc.n_inserts + attach_tries
+    if on_card and (launches["klt_fb_ncc"] != tracked
+            or launches["brief_raw_words"] != n_brief
+            or launches["brief_words"] or launches["klt_pyramid"]
+            or launches["patch_ncc"] or launches["klt_level"]):
+        _fail(f"EuRoC launches {launches} for {tracked} tracked frames, "
+              f"{lc.n_inserts} keyframe inserts and {attach_tries} attach "
+              f"tries")
+    with np.load(os.path.join(out, "run.npz")) as z:
+        init_at = int(np.argmax(z["initialized"]))
+    n_block = sum(1 for s in segments if s["kind"] == "block")
+    block_s = sum(sys_.timings[k] for k in ("dispatch", "sync", "insert",
+                                            "publish", "drain"))
+    block_frames = result["frames"] - init_at - 1
+    cycles = np.diff(prof.starts) if prof is not None else []
+    if prof is not None and prof.result is not None:
+        cycles = np.delete(cycles, prof.result["block"])
+    return dict(
+        result=result, wall_s=wall, fixture_s=fixture_s, init_at=init_at,
+        png_s=spent["png"], global_ba_s=spent["global_ba"],
+        block_frames=block_frames, block_s=block_s,
+        block_frames_per_s=_unprofiled_rate(
+            block_frames, block_s, prof.result if prof is not None else None,
+            EUROC_BLOCK),
+        cycle_median_s=float(np.median(cycles)) if len(cycles) else None,
+        blocks=n_block, launches=launches, attach_tries=attach_tries,
+        keyframes_inserted=lc.n_inserts, loop_stats=dict(sys_.loop_stats),
+        timings=dict(sys_.timings), syncs=_sync_summary(segments),
+        sync_segments=segments,
+        profiled_cycle=prof.result if prof is not None else None)
+
+
+def realtime_phase(cfg, device) -> dict:
+    """process_stream(realtime=True) on the loop-off circle with the
+    sequence's timestamps and blocks of 12: the bootstrap, then 96 frames
+    (8 blocks, 7 cadence checks). Each block runs far over its 0.4 s of
+    sensor time, so the solver budget must step from max_iters down to
+    min_iters and stay within them; poses must be finite. Returns the
+    budget each block ran with and the ATE (not gated). Runs on any
+    device."""
+    import torch
+    from vins_tpu_torch.io import synthetic
+    from vins_tpu_torch.pipeline import VinsSystem
+
+    n = N_RT_BOOT + N_RT_AFTER
+    seq = synthetic.make_synthetic_sequence(
+        cfg, n_frames=n, n_landmarks=300, seed=SEED, frame_dt=1.0 / 30.0,
+        traj_kwargs=TRAJ_OFF, imu_per_frame=4, device=device)
+    imgs = synthetic.render_sequence_images(seq, cfg, seed=SEED,
+                                            device=device)
+    sys_ = VinsSystem(cfg, ext=seq.ext, device=device, use_loop=False)
+    budgets = []
+    dispatch = sys_.dispatch_block
+
+    def logged(*args, **kwargs):
+        budgets.append(sys_.solver_budget)
+        return dispatch(*args, **kwargs)
+
+    sys_.dispatch_block = logged
+    t0 = time.perf_counter()
+    outs = sys_.process_stream(imgs, seq.chunks, block=N_RT_BLOCK,
+                               ts=seq.timestamps.cpu().numpy(),
+                               realtime=True)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    del sys_.dispatch_block
+    budgets.append(sys_.solver_budget)
+    lo, hi = cfg.solver.min_iters, cfg.solver.max_iters
+    init_at = next((i for i, o in enumerate(outs) if o.initialized), None)
+    if init_at is None:
+        _fail("real-time run: the system never initialized")
+    est = np.stack([o.p for o in outs[init_at:]])
+    if not (all(o.initialized for o in outs[init_at:])
+            and np.all(np.isfinite(est))):
+        _fail("real-time run: a pose after bootstrap is missing or not "
+              "finite")
+    if not all(lo <= b <= hi for b in budgets) or min(budgets) != lo:
+        _fail(f"real-time run: solver budgets {budgets} leave "
+              f"[{lo}, {hi}] or never reach {lo}")
+    ate, ate_raw = _ate(est, seq.p.cpu().numpy()[init_at:])
+    return dict(frames=n, init_at=init_at, budgets=budgets, wall_s=wall,
+                blocks=len(budgets) - 1, ate_rmse_m=ate,
+                ate_raw_rmse_m=ate_raw)
+
+
 def interactive_phase(cfg, device, traj: dict, n_frames: int) -> dict:
     """Drive VinsSystem.process_frame (loop closure on) frame by frame over
     a rendered sequence: bootstrap, then the interactive NON_LINEAR path.
@@ -1028,6 +1460,9 @@ def interactive_phase(cfg, device, traj: dict, n_frames: int) -> dict:
     sys_ = VinsSystem(cfg, ext=seq.ext, device=device)
 
     solve_ms, insert_ms = [], []
+    profiled = None
+    if on_card:
+        from torch.profiler import ProfilerActivity, profile
 
     def timed(fn, into):
         def call(*args, **kwargs):
@@ -1049,9 +1484,16 @@ def interactive_phase(cfg, device, traj: dict, n_frames: int) -> dict:
             attempts = _record_attempts(sys_, counter, sync)
             sync()
             t_run = time.perf_counter()
+            prof = None
             for k in range(n_frames):
                 kind = ("boot" if not sys_.initialized else "backend"
                         if sys_.frame_idx % cfg.freq == 0 else "solve")
+                if on_card and profiled is None and prof is None \
+                        and k >= PROFILE_FRAME and kind == "backend":
+                    # One backend frame and the two 30 Hz frames after it.
+                    prof = profile(activities=[ProfilerActivity.CUDA])
+                    prof.__enter__()
+                    t_prof, k_prof = time.perf_counter(), k
                 n_ins = len(insert_ms)
                 t0 = time.perf_counter()
                 outs.append(sys_.process_frame(
@@ -1060,6 +1502,13 @@ def interactive_phase(cfg, device, traj: dict, n_frames: int) -> dict:
                 sync()
                 frames.append(dict(kind=kind, insert=len(insert_ms) > n_ins,
                                    ms=(time.perf_counter() - t0) * 1e3))
+                if prof is not None and k == k_prof + cfg.freq - 1:
+                    wall_prof = time.perf_counter() - t_prof
+                    prof.__exit__(None, None, None)
+                    busy = _device_busy_s(prof)
+                    profiled = dict(frames=[k_prof, k], wall_s=wall_prof,
+                                    busy_s=busy, busy_share=busy / wall_prof)
+                    prof = None
             wall = time.perf_counter() - t_run
     finally:
         pnp_mod.pnp_step = step
@@ -1117,7 +1566,7 @@ def interactive_phase(cfg, device, traj: dict, n_frames: int) -> dict:
         boot_frame=stats([f["ms"] for f in frames[:init_at]
                           if f["kind"] == "boot"]),
         keyframes_inserted=lc.n_inserts, loop_stats=dict(sys_.loop_stats),
-        launches=launches)
+        launches=launches, profiled_frames=profiled)
 
 
 def _attempts_text(run: dict) -> str:
@@ -1146,7 +1595,10 @@ def _report_interactive(run: dict, card: str) -> None:
           f" backend frame with a keyframe insert {ms('insert_frame')}; "
           f"keyframe insert and detection {ms('keyframe_insert')}; boot "
           f"frame {ms('boot_frame')}; {run['keyframes_inserted']} keyframes"
-          f" inserted; launches {run['launches']}; {card}")
+          f" inserted; device busy in frames "
+          f"{(run['profiled_frames'] or {}).get('frames')} "
+          f"{_busy_text(run['profiled_frames'])}; launches "
+          f"{run['launches']}; {card}")
 
 
 def _report_run(tag: str, run: dict, card: str) -> None:
@@ -1181,8 +1633,91 @@ def _report_run(tag: str, run: dict, card: str) -> None:
              f"{sy['max_pose_graph']}, end-of-stream drain {sy['drain']} "
              f"(per block {sy['per_block']}; "
              f"{run['keyframe_syncs_per_block']:.1f} keyframe-branch "
-             f"syncs); launches {run['launches']}; {card}")
+             f"syncs); device busy in one steady-state cycle "
+             f"{_busy_text(run['profiled_cycle'])}; launches "
+             f"{run['launches']}; {card}")
     print(line)
+
+
+def _busy_text(prof) -> str:
+    if prof is None or prof.get("busy_share") is None:
+        return "not measured"
+    return (f"{prof['busy_share']:.4f} ({prof['busy_s']:.3f} s of "
+            f"{prof['wall_s']:.3f} s profiled)")
+
+
+def _report_euroc(run: dict, card: str) -> None:
+    sy, r = run["syncs"], run["result"]
+    busy = _busy_text(run["profiled_cycle"])
+    print(f"euroc: fixture written in {run['fixture_s']:.1f} s; "
+          f"{r['frames']} frames in {run['wall_s']:.1f} s (PNG decode "
+          f"{run['png_s']:.2f} s, global BA {run['global_ba_s']:.3f} s), "
+          f"init at frame "
+          f"{run['init_at']}; ATE {r.get('ate_rmse')} m "
+          f"({r.get('ate_rmse_raw')} raw), RPE(30) {r.get('rpe_30')}; "
+          f"{r.get('loop_hits')} loop hits, {r.get('pose_graph_runs')} "
+          f"pose-graph runs; keyframe ATE "
+          f"{r.get('kf_ate_raw')} raw, {r.get('kf_ate_pre_ba')} before and "
+          f"{r.get('kf_ate_post_ba')} after the global BA (cost "
+          f"{r.get('global_ba_cost')}); {run['block_frames_per_s']:.2f} "
+          f"frames/s in block mode over {run['block_frames']} frames "
+          f"(median cycle {run['cycle_median_s']} s a block, the profiled "
+          f"one left out); syncs per block: median {sy['median']}, max "
+          f"{sy['max']} (per block {sy['per_block']}, drain {sy['drain']});"
+          f" device busy in one steady-state cycle {busy}; "
+          f"{run['keyframes_inserted']} keyframes inserted, "
+          f"{run['attach_tries']} attach tries, loop {run['loop_stats']}; "
+          f"launches {run['launches']}; {card}")
+
+
+def _loop_on_child(path: str, device: str) -> None:
+    """Phase 4 in a child process: pickles ("ok", slice_phase's result) or
+    ("fail", what stopped it) to path."""
+    import pickle
+    import traceback
+
+    import torch
+    from vins_tpu_torch import default_config
+    try:
+        out = ("ok", slice_phase(default_config(), torch.device(device),
+                                 True, TRAJ_LOOP, N_FRAMES_LOOP,
+                                 max_init_at=N_BOOT_MAX - 1,
+                                 profile_at=PROFILE_AT))
+    except BaseException as e:      # _fail exits with SystemExit
+        out = ("fail", f"{e!r}\n{traceback.format_exc()}")
+    with open(path, "wb") as f:
+        pickle.dump(out, f)
+
+
+def _start_loop_on(device: str):
+    """Start phase 4 in a spawned process; returns (process, result path)."""
+    import multiprocessing
+    os.makedirs("smoke_out", exist_ok=True)
+    path = os.path.join("smoke_out", "loop_on.pkl")
+    if os.path.exists(path):
+        os.remove(path)
+    proc = multiprocessing.get_context("spawn").Process(
+        target=_loop_on_child, args=(path, device))
+    proc.start()
+    return proc, path
+
+
+def _join_loop_on(proc, path: str) -> dict:
+    """Wait for phase 4's process (at most LOOP_ON_TIMEOUT_S) and return its
+    result; fails if it failed, died or ran over."""
+    import pickle
+    proc.join(LOOP_ON_TIMEOUT_S)
+    if proc.is_alive():
+        proc.terminate()
+        proc.join()
+        _fail(f"the loop-on run took over {LOOP_ON_TIMEOUT_S} s")
+    if not os.path.exists(path):
+        _fail(f"the loop-on run's process died (exit {proc.exitcode})")
+    with open(path, "rb") as f:
+        status, out = pickle.load(f)
+    if status != "ok":
+        _fail(f"loop-on run: {out}")
+    return out
 
 
 def main() -> None:
@@ -1197,7 +1732,7 @@ def main() -> None:
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda}
 
-    from vins_tpu_torch import default_config
+    from vins_tpu_torch import default_config, euroc_config
     from vins_tpu_torch.ops import native
 
     t0 = time.perf_counter()
@@ -1210,21 +1745,41 @@ def main() -> None:
     cfg = default_config()
     device = torch.device("cuda", 0)
     kernels = kernel_phase(cfg, device)
+    kernels_euroc = euroc_kernel_phase(euroc_config(), device)
 
-    run_loop = slice_phase(cfg, device, True, TRAJ_LOOP, N_FRAMES_LOOP,
-                           max_init_at=N_BOOT_MAX - 1)
+    proc, loop_path = _start_loop_on(str(device))
+    try:
+        run_off = slice_phase(cfg, device, False, TRAJ_OFF, N_FRAMES_OFF,
+                              max_init_at=INIT_AT_MAX_OFF)
+        _report_run("loop-off", run_off, card)
+        run_rt = realtime_phase(cfg, device)
+        print(f"realtime: {run_rt['frames']} frames in blocks of "
+              f"{N_RT_BLOCK}, init at frame {run_rt['init_at']}, solver "
+              f"budget per block {run_rt['budgets'][:-1]} then "
+              f"{run_rt['budgets'][-1]}, ATE {run_rt['ate_rmse_m']:.4f} m "
+              f"aligned (not gated), {run_rt['wall_s']:.1f} s; {card}")
+        run_int = interactive_phase(cfg, device, TRAJ_OFF,
+                                    N_FRAMES_INTERACTIVE)
+        _report_interactive(run_int, card)
+        run_eu = euroc_phase(device)
+        _report_euroc(run_eu, card)
+        run_loop = _join_loop_on(proc, loop_path)
+    finally:
+        if proc.is_alive():
+            proc.terminate()
+            proc.join()
     _report_run("loop", run_loop, card)
-    run_off = slice_phase(cfg, device, False, TRAJ_OFF, N_FRAMES_OFF,
-                          max_init_at=INIT_AT_MAX_OFF)
-    _report_run("loop-off", run_off, card)
-    run_int = interactive_phase(cfg, device, TRAJ_OFF, N_FRAMES_INTERACTIVE)
-    _report_interactive(run_int, card)
 
     for k in kernels:
         k["launches"] = run_loop["launches"][k["name"]]
         k["launches_loop_off"] = run_off["launches"][k["name"]]
         k["launches_interactive"] = run_int["launches"][k["name"]]
+    for k in kernels_euroc:
+        k["launches"] = run_eu["launches"][k["name"].split("@")[0]]
+        k["launches_path"] = "euroc"
+    kernels = kernels + kernels_euroc
     report["loop"], report["loop_off"] = run_loop, run_off
+    report["realtime"], report["euroc"] = run_rt, run_eu
     report["interactive"] = run_int
     report["kernels"] = kernels
     os.makedirs("smoke_out", exist_ok=True)

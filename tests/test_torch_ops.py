@@ -41,8 +41,8 @@ def _t(x, dtype=None):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Importing the port (and its main-path and loop-closure modules)
-    imports no jax, no vins_tpu module and no triton, builds no kernel,
+    """Importing the port (its main-path, loop-closure, dataset IO,
+    global BA and EuRoC entry modules) imports no jax, no vins_tpu module and no triton, builds no kernel,
     and loading the shipped vocabulary opens no file of the JAX
     package."""
     code = (
@@ -55,6 +55,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import vins_tpu_torch.loop, vins_tpu_torch.loop.keyframe_db, "
         "vins_tpu_torch.loop.pose_graph, vins_tpu_torch.loop.vocabulary\n"
         "from vins_tpu_torch.ops import brief, brief_cuda, native\n"
+        "import vins_tpu_torch.io.euroc, vins_tpu_torch.io.asl_fixture, "
+        "vins_tpu_torch.io.imu_sync, vins_tpu_torch.io.stream_sync, "
+        "vins_tpu_torch.io.replay, vins_tpu_torch.io.evaluate, "
+        "vins_tpu_torch.parallel.dist_ba, vins_tpu_torch.parallel.harvest, "
+        "vins_tpu_torch.run_euroc\n"
         "assert vins_tpu_torch.loop.default_vocabulary('cpu') is not None\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'vins_tpu', 'triton'))\n"

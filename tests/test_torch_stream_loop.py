@@ -1,5 +1,6 @@
 """The streaming slice with loop closure on: vins_tpu_torch against
-vins_tpu, both at the JAX pipeline's depth-1 block order.
+vins_tpu, both at process_stream(depth=1) (one block in flight;
+test_torch_stream_depth2.py runs the default depth 2).
 
 Both systems bootstrap from ground truth and stream one block, inserting
 every keyframe into their loop DBs; that phase is compared as
@@ -172,7 +173,7 @@ def streams():
             block=BLOCK, ts=ts[s:e], depth=1)
         ot = sys_t.process_stream(
             imgs_t[s:e], ImuChunk(*[x[s:e] for x in tseq.chunks]),
-            block=BLOCK, ts=tseq.timestamps.numpy()[s:e],
+            block=BLOCK, ts=tseq.timestamps.numpy()[s:e], depth=1,
             gumbel=torch.as_tensor(noise[s:e]))
         return oj, ot
 

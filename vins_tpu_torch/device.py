@@ -1,8 +1,12 @@
 """The device an entry point runs on: the first CUDA card unless the
 caller names one. Without a card the default raises; nothing carries on
-on the CPU unless the caller asks for it (the tests pass device="cpu")."""
+on the CPU unless the caller asks for it (the tests pass device="cpu").
+Also the port's one-copy fetch of several device tensors."""
 from __future__ import annotations
 
+from typing import List
+
+import numpy as np
 import torch
 
 
@@ -16,3 +20,22 @@ def resolve(device=None) -> torch.device:
             "vins_tpu_torch runs on a CUDA card by default and none is "
             "available; pass device=\"cpu\" to run on the CPU")
     return torch.device("cuda", 0)
+
+
+def fetch_flat(tensors: List[torch.Tensor]) -> List[np.ndarray]:
+    """Several device tensors to host numpy arrays in ONE device-to-host
+    copy (one stream synchronization): each is flattened to float32 —
+    exact for the bool, float16, float32 and small-integer leaves the
+    port fetches — concatenated, copied, split and cast back."""
+    if not tensors:
+        return []
+    flat = torch.cat([t.reshape(-1).to(torch.float32) for t in tensors])
+    host = flat.cpu().numpy()
+    out, o = [], 0
+    for t in tensors:
+        n = t.numel()
+        dt = {torch.bool: np.bool_, torch.float16: np.float16,
+              torch.int32: np.int32}.get(t.dtype, np.float32)
+        out.append(host[o:o + n].reshape(tuple(t.shape)).astype(dt))
+        o += n
+    return out

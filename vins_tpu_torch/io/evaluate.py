@@ -1,6 +1,6 @@
-"""Trajectory accuracy: ATE after Umeyama alignment (port of the numpy
-`umeyama` and `ate_rmse` of vins_tpu/io/evaluate.py, which cannot be
-imported without jax)."""
+"""Trajectory accuracy (port of vins_tpu/io/evaluate.py, numpy only):
+ATE after Umeyama alignment, the relative-pose translation error over a
+fixed frame delta, and the path length."""
 from __future__ import annotations
 
 from typing import NamedTuple, Tuple
@@ -45,3 +45,22 @@ def ate_rmse(est_p: np.ndarray, gt_p: np.ndarray,
     return AteResult(rmse=float(np.sqrt((d ** 2).mean())),
                      mean=float(d.mean()), median=float(np.median(d)),
                      max=float(d.max()), R=R, t=t, s=s)
+
+
+def rpe(est_p: np.ndarray, gt_p: np.ndarray, delta: int = 10
+        ) -> Tuple[float, float]:
+    """Relative pose (translation) error over a fixed frame delta.
+    Returns (rmse, mean) of the per-pair relative-translation error norms."""
+    est_p = np.asarray(est_p, np.float64)
+    gt_p = np.asarray(gt_p, np.float64)
+    if len(est_p) - delta <= 0:
+        return 0.0, 0.0
+    de = est_p[delta:] - est_p[:-delta]
+    dg = gt_p[delta:] - gt_p[:-delta]
+    err = np.linalg.norm(de - dg, axis=1)
+    return float(np.sqrt((err ** 2).mean())), float(err.mean())
+
+
+def trajectory_length(p: np.ndarray) -> float:
+    p = np.asarray(p, np.float64)
+    return float(np.linalg.norm(np.diff(p, axis=0), axis=1).sum())

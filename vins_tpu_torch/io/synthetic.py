@@ -23,6 +23,7 @@ from ..core import feature_manager as fm
 from ..core.factors import Extrinsics
 from ..core.preintegration import ImuChunk
 from ..core.state import FeatureTable, WindowState
+from ..utils import camera as cam_mod
 from ..utils import lie
 
 
@@ -133,27 +134,36 @@ def make_synthetic_sequence(cfg: VinsConfig, n_frames: int = 60,
         gravity=T(gravity), timestamps=T(t_frames))
 
 
-def camera_ray_grid(cfg: VinsConfig) -> np.ndarray:
-    """[H, W, 3] unit camera-frame ray directions (undistorted camera)."""
+def camera_ray_grid(cfg: VinsConfig, distorted: bool = False) -> np.ndarray:
+    """[H, W, 3] unit camera-frame ray directions for every pixel. With
+    `distorted`, each pixel is undistorted through the camera's
+    radial-tangential model (utils.camera.pixel_to_normalized, float32 on
+    the CPU), so rendered frames look like the distorted camera's output."""
     H, W = cfg.camera.height, cfg.camera.width
     cam = cfg.camera
     u, v = np.meshgrid(np.arange(W, dtype=np.float32),
                        np.arange(H, dtype=np.float32))
-    dirs_c = np.stack([(u - cam.cx) / cam.fx, (v - cam.cy) / cam.fy,
-                       np.ones_like(u)], -1)
+    if distorted:
+        uv = torch.as_tensor(np.stack([u, v], -1).reshape(-1, 2))
+        xy = cam_mod.pixel_to_normalized(cam, uv).numpy().reshape(H, W, 2)
+        dirs_c = np.concatenate([xy, np.ones((H, W, 1), np.float32)], -1)
+    else:
+        dirs_c = np.stack([(u - cam.cx) / cam.fx, (v - cam.cy) / cam.fy,
+                           np.ones_like(u)], -1)
     return dirs_c / np.linalg.norm(dirs_c, axis=-1, keepdims=True)
 
 
 def render_camera_frames(p_cam, R_wc, cfg: VinsConfig, seed: int = 0,
                          wall_radius: float = 8.0, floor_z: float = -2.0,
                          ceil_z: float = 2.0, noise_sigma: float = 0.005,
-                         tex_gain: float = 1.0, tex_freq_max: float = 25.0,
-                         device=None, frames_per_pass: int = 8
-                         ) -> torch.Tensor:
+                         distorted: bool = False, tex_gain: float = 1.0,
+                         tex_freq_max: float = 25.0, device=None,
+                         frames_per_pass: int = 8) -> torch.Tensor:
     """Ray-cast [N, H, W] frames of the textured cylinder room from camera
     centers p_cam [N, 3] and camera-to-world rotations R_wc [N, 3, 3].
     The texture basis is the JAX renderer's (same numpy stream); the
-    noise comes from a torch.Generator seeded with `seed`. device=None
+    noise comes from a torch.Generator seeded with `seed`. distorted:
+    cast the rays of the distorted camera (camera_ray_grid). device=None
     means the first CUDA card."""
     H, W = cfg.camera.height, cfg.camera.width
     tex_rng = np.random.default_rng(seed + 77)
@@ -167,7 +177,8 @@ def render_camera_frames(p_cam, R_wc, cfg: VinsConfig, seed: int = 0,
 
     dev = device_mod.resolve(device)
     f32 = torch.float32
-    dirs_c = torch.as_tensor(camera_ray_grid(cfg), dtype=f32, device=dev)
+    dirs_c = torch.as_tensor(camera_ray_grid(cfg, distorted), dtype=f32,
+                             device=dev)
     freqs_t = torch.as_tensor(freqs, device=dev)
     amps_t = torch.as_tensor(amps, device=dev)
     phases_t = torch.as_tensor(phases, device=dev)
@@ -209,9 +220,11 @@ def render_sequence_images(seq: SyntheticSequence, cfg: VinsConfig,
                            seed: int = 0, wall_radius: float = 8.0,
                            floor_z: float = -2.0, ceil_z: float = 2.0,
                            noise_sigma: float = 0.005,
-                           device=None) -> torch.Tensor:
+                           device=None, distorted: bool = False
+                           ) -> torch.Tensor:
     """[N, H, W] float32 frames rendered along the sequence's trajectory
-    (device=None: the first CUDA card)."""
+    (device=None: the first CUDA card; distorted: through the camera's
+    radial-tangential model)."""
     R_ic = lie.np_quat_to_rotmat(seq.ext.qic.cpu().numpy())
     t_ic = seq.ext.tic.cpu().numpy()
     Rwb = lie.np_quat_to_rotmat(seq.q.cpu().numpy())
@@ -219,7 +232,8 @@ def render_sequence_images(seq: SyntheticSequence, cfg: VinsConfig,
     R_wc = np.einsum("nij,jk->nik", Rwb, R_ic)
     p_cam = p_f + np.einsum("nij,j->ni", Rwb, t_ic)
     return render_camera_frames(p_cam, R_wc, cfg, seed, wall_radius,
-                                floor_z, ceil_z, noise_sigma, device=device)
+                                floor_z, ceil_z, noise_sigma,
+                                distorted=distorted, device=device)
 
 
 def ground_truth_initializer(seq: SyntheticSequence, cfg: VinsConfig):

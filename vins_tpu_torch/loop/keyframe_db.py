@@ -1,5 +1,5 @@
-"""Keyframe database, loop detection and the loop-edge lifecycle (port of
-vins_tpu/loop/keyframe_db.py, without global_ba).
+"""Keyframe database, loop detection, the loop-edge lifecycle and the
+global BA on one device (port of vins_tpu/loop/keyframe_db.py).
 
 Keyframes are rows of fixed-capacity device tensors (FAST + BRIEF
 keypoints, their world points and track ids, drift-corrected and raw
@@ -670,6 +670,45 @@ class LoopCloser:
         self.r_drift = np.asarray(r_host)
         self.t_drift = np.asarray(t_host)
         self._drift_dirty = False
+
+    def global_ba(self, mesh=None, iters: int = 8, max_keyframes: int = 64,
+                  max_landmarks: int = 512, defer_fetch: bool = False):
+        """Global refinement over the map: the newest max_keyframes rows'
+        poses and their multi-keyframe tracks harvested into a BAProblem
+        and solved (parallel.dist_ba.solve_ba, one device). The refined raw
+        poses go to p_origin/q_origin and the pose graph's origin columns,
+        their drift-composed version to p/q; with live loop edges the pose
+        graph runs again to re-publish them. Returns the final cost (None
+        with defer_fetch, or when the map has no multi-keyframe track).
+        mesh: the JAX package's landmark-sharded solve is not ported
+        (ROADMAP item 23); anything but None raises NotImplementedError."""
+        from ..parallel.dist_ba import solve_ba
+        from ..parallel.harvest import apply_ba_result, harvest_ba_problem
+
+        if mesh is not None:
+            raise NotImplementedError(
+                "the landmark-sharded global BA is not ported (ROADMAP "
+                "item 23); call global_ba(mesh=None) for one device")
+        res = harvest_ba_problem(self.db, self.count, self.tic, self.qic,
+                                 max_keyframes=max_keyframes,
+                                 max_landmarks=max_landmarks)
+        if res is None:
+            return None
+        solved, cost, _ = solve_ba(res.state, res.prob, iters=iters)
+        self.db = apply_ba_result(self.db, res, solved, self.tic, self.qic,
+                                  r_drift=self._r_drift_dev,
+                                  t_drift=self._t_drift_dev)
+        idx = torch.as_tensor(res.kf_indices, device=self.device)
+        p_o = self.db.p_origin[idx]
+        yaw = lie.rotmat_to_ypr(lie.quat_to_rotmat(self.db.q_origin[idx]))
+        self.graph = self.graph._replace(
+            t_origin=self.graph.t_origin.index_copy(0, idx, p_o),
+            yaw_origin=self.graph.yaw_origin.index_copy(0, idx, yaw[:, 0]))
+        if self.n_loops > 0:
+            self.optimize(defer_fetch=defer_fetch)
+        if defer_fetch:
+            return None
+        return float(cost)
 
     def new_segment(self):
         """Failure recovery: later keyframes form a new segment."""

@@ -14,16 +14,27 @@ inserts and detects. NON_LINEAR, streaming (process_stream): blocks of
 frames through stream.run_vio_scan; an in-block failure re-enters INITIAL
 (a new loop-DB segment) and the tail of the stream is reprocessed.
 
-Loop closure (use_loop=True, the default, as in the JAX package) runs
-between blocks, one block in flight (the JAX pipeline's depth=1 order):
-sync_block fetches the block's packed rows together with the previous
-block's detection scores, verify results and the drift in one copy, runs
-the loop-edge lifecycle of the constraint that rode the block, finishes
-verification and stages the newest verified hit as a ride-time anchor
-for the next block; insert_block_keyframes gates and verifies, runs a
-deferred pose graph, inserts every loop_freq-th keyframe into the DB and
-dispatches the new rows' scores; publish_block applies the pose-graph
-drift to poses and point clouds.
+Block mode keeps up to `depth` blocks dispatched before the oldest is
+synced (the JAX pipeline's process_stream, depth 2 by default). A block is
+"in flight" once the host has issued its ops on the one CUDA stream;
+there are no other streams, threads or graphs, so depth buys the
+reference's order of host work, not overlap. Loop closure (use_loop=True,
+the default, as in the JAX package) runs between blocks: sync_block
+fetches a block's packed rows together with the previous block's
+detection scores, verify results and the drift in one copy, runs the
+loop-edge lifecycle of the constraint that rode that block (each dispatch
+is stamped, so a constraint staged after the next block was dispatched is
+never charged for it), finishes verification and stages the newest
+verified hit as a ride-time anchor for the next dispatch (at depth 2 the
+block after next); insert_block_keyframes gates and verifies, runs a
+deferred pose graph (and, with global_ba_every_kf, the global BA),
+inserts every loop_freq-th keyframe into the DB and dispatches the new
+rows' scores; publish_block applies the pose-graph drift to poses and
+point clouds. An in-block failure publishes the good prefix, discards the
+blocks dispatched after it and reprocesses from the frame after the
+failure. With realtime=True the solver's iteration budget steps between
+cfg.solver.min_iters and max_iters on the sync cadence against the
+block's span of sensor time.
 """
 from __future__ import annotations
 
@@ -45,6 +56,7 @@ from .core.estimator import (BackendState, FrameInput, LoopInput,
                              backend_step)
 from .core.factors import Extrinsics
 from .core.state import FeatureTable, WindowState
+from .device import fetch_flat as _fetch_flat
 from .frontend.tracker import FeatureTracker
 from .loop.keyframe_db import LoopCloser, _fetch, _fill
 from .utils import lie
@@ -123,25 +135,6 @@ def _np_rotmat_to_quat(R: np.ndarray) -> np.ndarray:
     return q / np.linalg.norm(q)
 
 
-def _fetch_flat(tensors: List[torch.Tensor]) -> List[np.ndarray]:
-    """Several device tensors to host numpy arrays in ONE device-to-host
-    copy (one stream synchronization): each is flattened to float32 —
-    exact for the bool, float16, float32 and small-integer leaves this
-    path fetches — concatenated, copied, split and cast back."""
-    if not tensors:
-        return []
-    flat = torch.cat([t.reshape(-1).to(torch.float32) for t in tensors])
-    host = flat.cpu().numpy()
-    out, o = [], 0
-    for t in tensors:
-        n = t.numel()
-        dt = {torch.bool: np.bool_, torch.float16: np.float16,
-              torch.int32: np.int32}.get(t.dtype, np.float32)
-        out.append(host[o:o + n].reshape(tuple(t.shape)).astype(dt))
-        o += n
-    return out
-
-
 def _reanchor_window(window: WindowState, p_anchor: torch.Tensor,
                      yaw_anchor: torch.Tensor) -> WindowState:
     """Rigidly move a window so frame 0 sits at p_anchor with yaw_anchor."""
@@ -169,9 +162,12 @@ class VinsSystem:
 
     def __init__(self, cfg: VinsConfig, seed: int = 0, use_pnp: bool = True,
                  use_loop: bool = True, ext: Optional[Extrinsics] = None,
-                 device=None, initializer: Optional[Initializer] = None):
+                 device=None, initializer: Optional[Initializer] = None,
+                 global_ba_every_kf: int = 0):
         """initializer: a test seam that replaces the visual-inertial
-        initialization (None, the default, runs it)."""
+        initialization (None, the default, runs it); global_ba_every_kf:
+        run LoopCloser.global_ba in block mode every that many new DB
+        rows (0, the default, never)."""
         self.cfg = cfg
         self.device = device_mod.resolve(device)
         dev = self.device
@@ -184,7 +180,11 @@ class VinsSystem:
         self.use_loop = use_loop and cfg.loop.enabled
         self.loop = (LoopCloser(cfg, seed, ext=(self.ext.tic, self.ext.qic),
                                 device=dev) if self.use_loop else None)
+        # The LM iteration budget of streaming solves; process_stream's
+        # real-time mode moves it between these bounds.
         self.solver_budget = cfg.solver.max_iters
+        self._budget_floor = cfg.solver.min_iters
+        self._dispatch_seq = 0       # stamps each dispatched block
         self._loop_inactive = LoopInput.inactive(cfg.window.max_landmarks,
                                                  device=dev)
         self._anchor_inactive = stream_mod.LoopAnchor.inactive(
@@ -199,6 +199,12 @@ class VinsSystem:
         # Block mode's dead-reckoning leaves the pnp window's carried
         # preintegrations stale; the next interactive solve rebuilds them.
         self._pnp_preints_stale = False
+        # In-stream global BA on one device (the sharded solve is not
+        # ported: _ba_mesh stays None).
+        self._ba_every = int(global_ba_every_kf)
+        self._last_ba_count = 0
+        self._ba_mesh = None
+        self.ba_runs = 0
         self.loop_stats = {"hits": 0, "staged": 0, "attached": 0,
                            "good_frames": 0, "retired": 0}
         self.timings = {"dispatch": 0.0, "sync": 0.0, "insert": 0.0,
@@ -591,19 +597,27 @@ class VinsSystem:
         self.timings["host_syncs"] += int(sum(
             1 for k in range(n) if (self.frame_idx - n + k) % self.cfg.freq
             == 0))
-        # With one block in flight, a staged constraint rides exactly the
-        # block dispatched next, which the next sync_block closes out.
-        return (outs, imgs, n, ts, self._pending_loop is not None)
+        # Stamp the staged constraint with this dispatch: at depth 2 a
+        # constraint staged at sync k first rides block k+2, and sync k+1
+        # (a block that did not carry it) must not charge it.
+        seq = self._dispatch_seq
+        self._dispatch_seq += 1
+        if self._pending_loop is not None:
+            self._pending_loop.setdefault("rode", set()).add(seq)
+        return (outs, imgs, n, ts, seq)
 
     def sync_block(self, handle):
         """Fetch, in one device-to-host copy, the block's packed per-frame
         rows and sparse map with the previous block's detection scores,
         verify results, the drift and the anchor's pending flag; run the
         failure bookkeeping and the loop-edge lifecycle of the constraint
-        that rode the block, finish verification, and stage the newest
-        verified hit as an anchor for the next block."""
+        that rode the block (by the dispatch stamps), finish
+        verification, and stage the newest verified hit as an anchor for
+        the next dispatch (at depth 2 the block after next)."""
         t0 = time.perf_counter()
-        outs, imgs, n, ts, loop_rode = handle
+        outs, imgs, n, ts, seq = handle
+        pl = self._pending_loop
+        loop_rode = pl is not None and seq in pl.get("rode", ())
         pending_detect, self._pending_detect = self._pending_detect, []
         pending_scores, self._pending_scores = self._pending_scores, None
         scores_dev, floor = None, 0.0
@@ -616,6 +630,7 @@ class VinsSystem:
                     if pend_verify is not None else [])
         leaves = [outs.packed, outs.point_cloud, outs.point_valid]
         if self.use_loop:
+            # The anchor the next dispatch starts from (the latest state).
             anchor = (self._anchor_dev if self._anchor_dev is not None
                       else self._anchor_inactive)
             leaves += [self.loop._r_drift_dev, self.loop._t_drift_dev,
@@ -651,8 +666,7 @@ class VinsSystem:
         # last good readout refines the edge once this block's keyframes
         # have rows (insert_block_keyframes); retirement or a failure
         # closes it and schedules the pose graph.
-        if self._pending_loop is not None and loop_rode:
-            pl = self._pending_loop
+        if loop_rode:
             ret_idx = np.flatnonzero(lret_h[:n_ok])
             stop = int(ret_idx[0]) + 1 if len(ret_idx) else n_ok
             good_idx = np.flatnonzero(lgood_h[:stop])
@@ -742,6 +756,13 @@ class VinsSystem:
         self._pending_detect = inserted
         if inserted:
             self._pending_scores = self.loop.dispatch_scores(inserted)
+        # In-stream global BA over the harvested map (opt-in), its cost
+        # fetch deferred like the pose graph's drift.
+        if self._ba_every and \
+                self.loop.count - self._last_ba_count >= self._ba_every:
+            self._last_ba_count = self.loop.count
+            self.loop.global_ba(mesh=self._ba_mesh, defer_fetch=True)
+            self.ba_runs += 1
         self.timings["insert"] += time.perf_counter() - t0
 
     def _apply_pending_refine(self, pairs) -> None:
@@ -805,11 +826,13 @@ class VinsSystem:
                               "ttl": lp.attach_ttl + F, "attached": False}
         self.loop_stats["staged"] += 1
 
-    def publish_block(self, prep) -> List[PipelineOutput]:
+    def publish_block(self, prep, ts=None) -> List[PipelineOutput]:
         """Assemble the per-frame outputs of a synced block, with the
-        pose-graph drift applied to poses and backend-frame point clouds."""
+        pose-graph drift applied to poses and backend-frame point clouds.
+        ts: the block's timestamps (default: those given at dispatch)."""
         t0 = time.perf_counter()
-        ts = prep["ts"]
+        if ts is None:
+            ts = prep["ts"]
         results = []
         for k in range(prep["n_ok"]):
             t = float(ts[k]) if ts is not None else 0.0
@@ -839,6 +862,24 @@ class VinsSystem:
                 loop_hit=None, status="FAILURE"))
         self.timings["publish"] += time.perf_counter() - t0
         return results
+
+    def prepare_block(self, handle):
+        """sync_block and insert_block_keyframes in one call."""
+        prep = self.sync_block(handle)
+        self.insert_block_keyframes(prep)
+        return prep
+
+    def finalize_block(self, handle, ts=None) -> List[PipelineOutput]:
+        """prepare_block, then publish_block."""
+        return self.publish_block(self.prepare_block(handle), ts)
+
+    def process_block(self, imgs: torch.Tensor, chunks: pre_mod.ImuChunk,
+                      ts=None, gumbel: Optional[torch.Tensor] = None
+                      ) -> List[PipelineOutput]:
+        """One block dispatched and finalized: imgs [N, H, W], chunks
+        stacked [N, ...]."""
+        return self.finalize_block(self.dispatch_block(imgs, chunks, ts,
+                                                       gumbel))
 
     def drain_loop_work(self) -> None:
         """End of a stream: gate and verify what is pending, detect the
@@ -883,21 +924,43 @@ class VinsSystem:
         self.timings["drain"] += time.perf_counter() - t0
 
     def process_stream(self, imgs: torch.Tensor, chunks: pre_mod.ImuChunk,
-                       block: int = 48, ts=None,
+                       block: int = 48, ts=None, realtime: bool = False,
+                       depth: int = 2,
                        gumbel: Optional[torch.Tensor] = None
                        ) -> List[PipelineOutput]:
         """A staged sequence: interactive frames until initialized, then
-        blocks of `block` frames, each synced, its keyframes inserted and
-        published before the next is dispatched (the JAX pipeline's
-        process_stream at depth=1); an in-block failure re-enters INITIAL
-        and reprocesses from the frame after the failure; pending loop
-        work is drained at the end. gumbel: optional per-frame RANSAC
-        noise [n, n_hyps, M]. Returns one output per input frame."""
+        blocks of `block` frames with up to `depth` dispatched before the
+        oldest is synced. For block k: sync k, its keyframes inserted, its
+        outputs published, then block k+depth dispatched, so a hit staged
+        at sync k first rides block k+depth. An in-block failure publishes
+        the good prefix, discards the blocks in flight behind it,
+        re-enters INITIAL and reprocesses from the frame after the
+        failure. realtime (needs ts): after each sync, a wall time between
+        syncs above the block's sensor span lowers solver_budget by one
+        (not below cfg.solver.min_iters), one under 0.7 of the span raises
+        it (not above max_iters). Pending loop work is drained at the end.
+        gumbel: optional per-frame RANSAC noise [n, n_hyps, M]. Returns
+        one output per input frame."""
         n = int(imgs.shape[0])
         results: List[PipelineOutput] = []
         i = 0
-        while i < n:
-            if not self.initialized:
+        inflight = []                # (handle, start, end), oldest first
+        last_sync_t = None
+
+        def dispatch_next():
+            nonlocal i
+            e = min(i + block, n)
+            handle = self.dispatch_block(
+                imgs[i:e], pre_mod.ImuChunk(*[x[i:e] for x in chunks]),
+                ts=ts[i:e] if ts is not None else None,
+                gumbel=None if gumbel is None else gumbel[i:e])
+            inflight.append((handle, i, e))
+            i = e
+
+        while i < n or inflight:
+            # A failure empties `inflight` first, so interactive frames
+            # never run beside a block in flight.
+            if not self.initialized and not inflight:
                 results.append(self.process_frame(
                     imgs[i],
                     pre_mod.ImuChunk(*[x[i] for x in chunks]),
@@ -905,16 +968,32 @@ class VinsSystem:
                     gumbel=None if gumbel is None else gumbel[i]))
                 i += 1
                 continue
-            e = min(i + block, n)
-            handle = self.dispatch_block(
-                imgs[i:e], pre_mod.ImuChunk(*[x[i:e] for x in chunks]),
-                ts=ts[i:e] if ts is not None else None,
-                gumbel=None if gumbel is None else gumbel[i:e])
+            while i < n and self.initialized and len(inflight) < depth:
+                dispatch_next()
+            handle, s0, e0 = inflight.pop(0)
             prep = self.sync_block(handle)
             self.insert_block_keyframes(prep)
             results.extend(self.publish_block(prep))
-            i = i + prep["fail_at"] + 1 if prep["fail_at"] is not None \
-                else e
+            if prep["fail_at"] is not None:
+                # The blocks behind it started from the frozen state;
+                # _fail_reset has replaced the committed state.
+                inflight.clear()
+                last_sync_t = None
+                i = s0 + prep["fail_at"] + 1
+                continue
+            now = time.perf_counter()
+            if realtime and ts is not None and e0 - s0 >= 2 \
+                    and last_sync_t is not None:
+                span = float(ts[e0 - 1] - ts[s0]) * (e0 - s0) / (e0 - s0 - 1)
+                wall = now - last_sync_t
+                if span > 0:
+                    if wall > span and \
+                            self.solver_budget > self._budget_floor:
+                        self.solver_budget -= 1
+                    elif wall < 0.7 * span and \
+                            self.solver_budget < self.cfg.solver.max_iters:
+                        self.solver_budget += 1
+            last_sync_t = now
         self.drain_loop_work()
         return results
 
