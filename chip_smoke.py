@@ -32,11 +32,12 @@ Phases (any failure exits non-zero, and no result line is printed):
                 shape, a 752x480 frame pair rendered through the EuRoC
                 camera's distortion (row pitches of 3008, 1504 and 752
                 bytes), with the same tolerances;
-  4. loop     — (in a spawned child process, alongside phases 5-8 in this
-                one, so that the script ends well inside its time on a
-                slow host; each process counts its own launches and
-                syncs, and the frames/s of these runs are read under
-                that contention) the default system, VinsSystem(cfg)
+  4. loop     — (in a spawned child process, alongside phases 5-9 in this
+                one, which runs 8 and 9 first, then 5-7, so that the
+                script ends well inside its time on a slow host; each
+                process counts its own launches and syncs, and the
+                frames/s of these runs are read under that contention)
+                the default system, VinsSystem(cfg)
                 with loop closure on,
                 at default_config() on bench.py's revisiting circle
                 (w = 0.7, bob 0.15): it bootstraps itself (visual-inertial
@@ -72,7 +73,26 @@ Phases (any failure exits non-zero, and no result line is printed):
                 from the raw frame once per keyframe insert and attach
                 try, no other kernel; prints the init frame, block
                 frames/s, syncs per block and the device busy share of
-                one steady-state cycle under torch.profiler.
+                one steady-state cycle under torch.profiler; saves the
+                global BA's harvested problem for phase 9;
+  9. scale-out — at default_config(): 8 backend streams (make_synthetic_
+                window, seeds 0-7) through make_batched_sequence_runner
+                for 8 steps, one vmapped select-variant step each, and
+                each stream alone through run_sequence_scan: decisions
+                equal and poses within 1e-3 m; bench.py's 24-frame
+                backend sequence through run_sequence_scan (no failure,
+                poses within 0.1 m of the ground truth); phase 8's
+                global-BA problem and make_ba_problem(K = 64, L = 2048)
+                solved by solve_ba_sharded in 2 spawned ranks over gloo
+                sharing the card and in 1 spawned rank over NCCL, against
+                solve_ba here (tests/test_parallel.py's bounds: cost
+                within rtol 1e-3, poses within 1e-4 m + rtol 1e-3; a rank
+                still running after 300 s fails the phase); prints each
+                part's wall (StageTimers), the
+                batched step against one stream, the scan's frames/s,
+                keyframe share and syncs, each BA's seconds and
+                all_reduce payload, both worlds' scaling reports and the
+                speed of light of one LM iteration at L = 2048.
 Every run prints its initialization attempts (frame, status, wall time,
 synchronizing CUDA calls); the interactive run prints the per-frame wall
 time of the motion-only solve, a backend frame and a keyframe insert.
@@ -145,6 +165,56 @@ N_RT_BLOCK = 12
 # after it.
 PROFILE_AT = 8
 PROFILE_FRAME = 100
+# Phase 9 (scale-out): B streams of the backend through one vmapped step,
+# each stream bootstrapped from make_synthetic_window with its own seed and
+# fed the newest frame of the windows one frame interval later; bench.py's
+# backend sequence builder (bench.py:29-55) through run_sequence_scan; the
+# global BA's problem from phase 8 and tools/measure_scaling_chip.py's
+# largest map (with bench.py:316's pixel noise) solved by spawned ranks
+# (2 over gloo sharing the card, 1 over NCCL).
+N_STREAMS = 8
+N_BATCH_STEPS = 8
+STREAM_LANDMARKS = 300
+STREAM_NOISE_PX = 0.3
+# Stream s's frame interval is STREAM_DTS[s % 2]: at 10 Hz every frame
+# clears default_config()'s 10 px parallax and is a keyframe, at 50 Hz
+# about every other frame is not, so one batched call takes both slides.
+STREAM_DTS = (0.1, 0.02)
+# Each stream against its single-stream run: the first step within 1e-4 m;
+# the later steps within 1e-3 m, the backend's parity bound against the
+# JAX package (tests/test_torch_backend.py), since the batched products
+# round otherwise than the unbatched ones and each step's LM solve starts
+# from the last one's slightly different state.
+STREAM_STEP1_TOL = 1e-4  # m
+STREAM_POSE_TOL = 1e-3   # m
+N_SCAN = 24
+# bench.py's sequence at 50 Hz (it has 10 Hz, where every frame is a
+# keyframe), so that the scan takes both slides. Its first N_SCAN_HOST
+# frames also go through the main path's host-branch step, which the scan
+# must match (decisions equal, poses within STREAM_STEP1_TOL at the first
+# frame and STREAM_POSE_TOL after). The error against the ground truth is
+# recorded, not gated: at 50 Hz the sequence's IMU edges are full, and
+# merging two full edges in a non-keyframe slide drops samples in the
+# JAX package as in the port (ROADMAP Queue 3), so the position falls
+# behind the truth with every such slide.
+SCAN_DT = 0.02
+N_SCAN_HOST = 8
+BA_ITERS = 8            # LoopCloser.global_ba's
+BA_LARGE = dict(n_poses=64, n_landmarks=2048, seed=1, noise_px=0.5,
+                pose_noise=0.05, point_noise=0.2)
+# The position prior that harvest_ba_problem gives every global BA (0.3 per
+# meter at the initial poses). Without it the map's scale rests on its two
+# frozen poses, which are neighbours: the cost is flat along the scale, and
+# a mere change of summation order (a landmark permutation in solve_ba, or
+# the shards) moves the poses by millimeters at an equal cost.
+BA_LARGE_PRIOR_W = 0.3
+# A sharded solve against solve_ba on the card: the cost within rtol 1e-3,
+# every pose coordinate within 1e-4 m.
+BA_COST_RTOL = 1e-3
+BA_POSE_TOL = 1e-4      # m
+BA_RANKS_TIMEOUT_S = 300
+EUROC_BA_PROBLEM = os.path.join("smoke_out", "euroc_ba_problem.pt")
+SCALE_OUT_DIR = os.path.join("smoke_out", "scale_out")
 FLOW_TOL = 1e-3         # px
 NCC_TOL = 1e-4
 OK_AGREE = 0.99
@@ -1248,8 +1318,9 @@ def euroc_phase(device) -> dict:
     and K3 from the raw frame once per keyframe insert and attach try,
     with no other kernel. Also returns the init frame, block frames/s,
     syncs per block and the device busy share of one profiled
-    steady-state cycle. Runs on any device (launch and sync counts and
-    the profile only on the card)."""
+    steady-state cycle. Saves the global BA's harvested problem to
+    EUROC_BA_PROBLEM (phase 9). Runs on any device (launch and sync counts
+    and the profile only on the card)."""
     import shutil
 
     import torch
@@ -1257,6 +1328,7 @@ def euroc_phase(device) -> dict:
     from vins_tpu_torch import stream as stream_mod
     from vins_tpu_torch.io import euroc as euroc_mod
     from vins_tpu_torch.io.asl_fixture import generate_asl_fixture
+    from vins_tpu_torch.parallel import harvest as harvest_mod
 
     on_card = torch.device(device).type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
@@ -1305,9 +1377,21 @@ def euroc_phase(device) -> dict:
         attach_tries += 1
         return attach(*args, **kwargs)
 
+    # The global BA's problem, kept on the device and saved after the run
+    # for phase 9's sharded solves.
+    harvest = harvest_mod.harvest_ba_problem
+    captured = []
+
+    def capture(*args, **kwargs):
+        res = harvest(*args, **kwargs)
+        if res is not None:
+            captured.append(res)
+        return res
+
     run_euroc.VinsSystem = system
     stream_mod._attach_loop = counted_attach
     euroc_mod.load_gray_png = timed(load_png, "png")
+    harvest_mod.harvest_ba_problem = capture
     _reset_counts()
     t0 = time.perf_counter()
     try:
@@ -1320,6 +1404,7 @@ def euroc_phase(device) -> dict:
         run_euroc.VinsSystem = make
         stream_mod._attach_loop = attach
         euroc_mod.load_gray_png = load_png
+        harvest_mod.harvest_ba_problem = harvest
     wall = time.perf_counter() - t0
     launches = _read_counts()
     sys_ = made[0]
@@ -1357,6 +1442,12 @@ def euroc_phase(device) -> dict:
         _fail(f"EuRoC launches {launches} for {tracked} tracked frames, "
               f"{lc.n_inserts} keyframe inserts and {attach_tries} attach "
               f"tries")
+    if not captured:
+        _fail("the EuRoC run's global BA harvested no problem")
+    res = captured[-1]
+    torch.save({"state": tuple(x.cpu() for x in res.state),
+                "prob": tuple(None if x is None else x.cpu()
+                              for x in res.prob)}, EUROC_BA_PROBLEM)
     with np.load(os.path.join(out, "run.npz")) as z:
         init_at = int(np.argmax(z["initialized"]))
     n_block = sum(1 for s in segments if s["kind"] == "block")
@@ -1670,6 +1761,435 @@ def _report_euroc(run: dict, card: str) -> None:
           f"launches {run['launches']}; {card}")
 
 
+def _stream_sequences(cfg, device):
+    """N_STREAMS backend streams: stream s bootstrapped from
+    make_synthetic_window(seed=s) at the frame interval STREAM_DTS[s % 2]
+    and fed, step k, the newest frame of the window that starts k frame
+    intervals later (its IMU edge, track ids
+    and observations). Returns (states, inputs [T] per stream, ext,
+    gravity)."""
+    from vins_tpu_torch.core.estimator import BackendState, FrameInput
+    from vins_tpu_torch.core.preintegration import ImuChunk
+    from vins_tpu_torch.io.synthetic import make_synthetic_window
+    from vins_tpu_torch.parallel import stack_inputs
+
+    F = cfg.window.num_frames
+    states, seqs = [], []
+    for s in range(N_STREAMS):
+        dt = STREAM_DTS[s % len(STREAM_DTS)]
+        kw = dict(n_landmarks=STREAM_LANDMARKS, noise_px=STREAM_NOISE_PX,
+                  frame_dt=dt, device=device)
+        w = make_synthetic_window(cfg, seed=s, **kw)
+        states.append(BackendState.bootstrap(cfg, w.state, w.feats,
+                                             w.chunks, w.ext, w.gravity))
+        frames = []
+        for k in range(1, N_BATCH_STEPS + 1):
+            wk = make_synthetic_window(cfg, seed=s, t0=k * dt, **kw)
+            frames.append(FrameInput(
+                chunk=ImuChunk(*[x[-1] for x in wk.chunks]),
+                ids=wk.feats.track_id, obs=wk.feats.obs[F - 1],
+                obs_valid=wk.feats.mask[F - 1] & wk.feats.valid))
+        seqs.append(stack_inputs(frames))
+    return states, seqs, w.ext, w.gravity
+
+
+def _batched_part(cfg, device, sync) -> dict:
+    """The N_STREAMS streams through make_batched_sequence_runner (N_BATCH_
+    STEPS steps, one call), then each alone through run_sequence_scan;
+    fails unless both slides occur (a keyframe and a non-keyframe step),
+    every stream's keyframe and failure decisions are equal, and its
+    poses are within STREAM_STEP1_TOL of its own run at the first step
+    and STREAM_POSE_TOL at the later ones. Records each step's largest
+    error over the streams."""
+    import torch
+    from vins_tpu_torch.core.estimator import run_sequence_scan
+    from vins_tpu_torch.parallel import (make_batched_sequence_runner,
+                                         stack_inputs, stack_states)
+
+    states, seqs, ext, gravity = _stream_sequences(cfg, device)
+    run = make_batched_sequence_runner(cfg, ext, gravity)
+    sync()
+    t0 = time.perf_counter()
+    fin_b, out_b = run(stack_states(states), stack_inputs(seqs))
+    sync()
+    batched_s = time.perf_counter() - t0
+    singles, single_s = [], []
+    for st, seq in zip(states, seqs):
+        sync()
+        t0 = time.perf_counter()
+        singles.append(run_sequence_scan(st, seq, cfg, ext, gravity))
+        sync()
+        single_s.append(time.perf_counter() - t0)
+    errs = []
+    for b, (fin, out) in enumerate(singles):
+        same = (torch.equal(out_b.is_keyframe[b], out.is_keyframe)
+                and torch.equal(out_b.failure[b], out.failure))
+        # [T]: the largest coordinate error at each step.
+        err = torch.abs(out_b.pose_p[b] - out.pose_p).amax(-1).tolist()
+        if (not same or not err[0] <= STREAM_STEP1_TOL
+                or not max(err[1:]) <= STREAM_POSE_TOL):
+            _fail(f"batched stream {b}: decisions "
+                  f"{out_b.is_keyframe[b].tolist()} / "
+                  f"{out_b.failure[b].tolist()} against "
+                  f"{out.is_keyframe.tolist()} / {out.failure.tolist()}, "
+                  f"pose errors by step {err} m (tolerance "
+                  f"{STREAM_STEP1_TOL} at the first, {STREAM_POSE_TOL} "
+                  f"after)")
+        errs.append(err)
+    if not bool(torch.all(torch.isfinite(out_b.pose_p))):
+        _fail("batched backend poses are not finite")
+    kf = out_b.is_keyframe
+    if not (bool(kf.any()) and not bool(kf.all())):
+        _fail(f"batched backend: keyframe decisions {kf.tolist()} take "
+              f"one slide only")
+    step_err = np.max(np.asarray(errs), 0).tolist()
+    n = N_STREAMS * N_BATCH_STEPS
+    return dict(
+        streams=N_STREAMS, steps=N_BATCH_STEPS, batched_s=batched_s,
+        step_s=batched_s / N_BATCH_STEPS, frames_per_s=n / batched_s,
+        single_s=single_s,
+        single_frames_per_s=N_BATCH_STEPS / float(np.median(single_s)),
+        frame_dts=[STREAM_DTS[s % len(STREAM_DTS)]
+                   for s in range(N_STREAMS)],
+        max_pose_err_m=max(step_err), step_pose_err_m=step_err,
+        stream_step_pose_err_m=errs,
+        keyframes=int(out_b.is_keyframe.sum()),
+        failures=int(out_b.failure.sum()))
+
+
+def _scan_part(cfg, device, sync, on_card: bool) -> dict:
+    """bench.py's backend sequence at SCAN_DT (N_SCAN frames after the
+    bootstrap) through run_sequence_scan, its synchronizing CUDA calls
+    counted, then its first N_SCAN_HOST frames through the host-branch
+    backend_step; fails unless the poses are finite, no frame fails,
+    both slides occur and the scan matches the host branch."""
+    import torch
+    from vins_tpu_torch.core.estimator import (_sel, backend_step,
+                                               run_sequence_scan, tree_index)
+    from vins_tpu_torch.io.synthetic import (build_backend_inputs,
+                                             make_synthetic_sequence)
+
+    F = cfg.window.num_frames
+    est, inputs, ext, gravity = build_backend_inputs(
+        cfg, N_SCAN, seed=0, frame_dt=SCAN_DT, device=device)
+    gt = make_synthetic_sequence(cfg, n_frames=F + N_SCAN, n_landmarks=300,
+                                 seed=0, noise_px=0.5, frame_dt=SCAN_DT,
+                                 device=device).p[F:]
+    counter = _SyncCounter(on_card)
+    sync()
+    t0 = time.perf_counter()
+    with counter:
+        _, out = run_sequence_scan(est, inputs, cfg, ext, gravity)
+        n_sync = counter.count(0)
+        sync()
+    wall = time.perf_counter() - t0
+    host_kf, host_err = [], []
+    for t in range(N_SCAN_HOST):
+        est2, o = backend_step(est, tree_index(inputs, t), cfg, ext,
+                               gravity)
+        est = _sel(o.failure, est, est2)
+        host_kf.append(bool(o.is_keyframe))
+        host_err.append(float(torch.max(torch.abs(o.pose_p
+                                                  - out.pose_p[t]))))
+    err = torch.linalg.norm(out.pose_p - gt, dim=-1)
+    kf = out.is_keyframe
+    if (not bool(torch.all(torch.isfinite(out.pose_p)))
+            or bool(out.failure.any()) or bool(kf.all())
+            or not bool(kf.any())
+            or host_kf != kf[:N_SCAN_HOST].tolist()
+            or not host_err[0] <= STREAM_STEP1_TOL
+            or not max(host_err[1:]) <= STREAM_POSE_TOL):
+        _fail(f"sequence scan: failures {out.failure.tolist()}, "
+              f"keyframes {kf.tolist()} (the host branch's {host_kf}), "
+              f"pose errors against the host branch {host_err} m")
+    return dict(frames=N_SCAN, frame_dt=SCAN_DT, wall_s=wall,
+                frames_per_s=N_SCAN / wall,
+                keyframe_share=float(kf.float().mean()), syncs=n_sync,
+                host_frames=N_SCAN_HOST, host_pose_err_m=host_err,
+                truth_err_m=err.tolist(), max_err_m=float(err.max()))
+
+
+def _ba_rank(rank: int, world: int, backend: str, workdir: str,
+             device: str, large: dict) -> None:
+    """One spawned rank of phase 9's BA world (on `device`): every problem
+    of workdir/problems.pt solved with solve_ba_sharded over a (1, world)
+    mesh (a warm solve, then a timed one), and the scaling report on the
+    map `large` (BA_LARGE) at the block counts the world forms; writes
+    ("ok", results) to workdir/rank<rank>.pt, or ("fail", what stopped
+    it) before it re-raises."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+    path = os.path.join(workdir, f"rank{rank}.pt")
+    try:
+        out = _ba_rank_work(rank, world, backend, workdir, device, large)
+    except BaseException as e:
+        torch.save(("fail", f"{e!r}\n{traceback.format_exc()}"), path)
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    torch.save(("ok", out), path)
+
+
+def _ba_rank_work(rank: int, world: int, backend: str, workdir: str,
+                  device: str, large: dict) -> dict:
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from vins_tpu_torch.parallel import (BAProblem, BAState, make_mesh,
+                                         scaling_report, solve_ba_sharded)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    dist.init_process_group(
+        backend, init_method="file://" + os.path.abspath(
+            os.path.join(workdir, "init")), world_size=world, rank=rank,
+        timeout=datetime.timedelta(seconds=BA_RANKS_TIMEOUT_S))
+    mesh = make_mesh(block=world, device_type=dev.type)
+    out = {}
+    for name, (st, pr) in torch.load(os.path.join(workdir,
+                                                  "problems.pt")).items():
+        st = BAState(*(x.to(dev) for x in st))
+        pr = BAProblem(*(x.to(dev) for x in pr))
+        solve_ba_sharded(st, pr, mesh, iters=BA_ITERS)
+        sync()
+        dist.barrier()
+        t0 = time.perf_counter()
+        sol, cost, hist = solve_ba_sharded(st, pr, mesh, iters=BA_ITERS)
+        sync()
+        out[name] = dict(seconds=time.perf_counter() - t0, p=sol.p.cpu(),
+                         cost=float(cost), hist=hist.cpu())
+    out["scaling"] = scaling_report(
+        blocks=(1, 2, 4), n_poses=large["n_poses"],
+        n_landmarks=large["n_landmarks"], iters=BA_ITERS, n_rep=3,
+        device_type=dev.type)
+    return out
+
+
+def _ba_problems(device) -> dict:
+    """{name: (BAState, BAProblem)} on the device: phase 8's EuRoC problem
+    and BA_LARGE with its BA_LARGE_PRIOR_W prior, each with L padded to an
+    even count (both worlds' block sizes divide it) and the prior
+    materialized."""
+    import torch
+    from vins_tpu_torch.io.synthetic import make_ba_problem
+    from vins_tpu_torch.parallel import BAProblem, BAState
+    from vins_tpu_torch.parallel.dist_ba import _materialize_prior
+    from vins_tpu_torch.parallel.harvest import pad_landmarks_to
+
+    saved = torch.load(EUROC_BA_PROBLEM)
+    euroc = (BAState(*(x.to(device) for x in saved["state"])),
+             BAProblem(*(None if x is None else x.to(device)
+                         for x in saved["prob"])))
+    _, init, prob = make_ba_problem(device=device, **BA_LARGE)
+    prob = prob._replace(prior_p=init.p.clone(), prior_w=torch.tensor(
+        BA_LARGE_PRIOR_W, device=init.p.device))
+    out = {}
+    for name, (st, pr) in (("euroc", euroc), ("K64_L2048", (init, prob))):
+        st, pr = pad_landmarks_to(st, pr, 2)
+        out[name] = (st, _materialize_prior(st, pr))
+    return out
+
+
+def _sharded_ba_part(device, sync) -> dict:
+    """Each problem of _ba_problems solved by 2 spawned ranks over gloo on
+    this card, by 1 spawned rank over NCCL (gloo off the card), and by
+    solve_ba here (the reference, while the ranks start); fails unless
+    both worlds end within BA_RANKS_TIMEOUT_S and match the reference:
+    the cost within BA_COST_RTOL of it, each pose coordinate within
+    BA_POSE_TOL of it."""
+    import multiprocessing
+    import shutil
+
+    import torch
+    from vins_tpu_torch.parallel import solve_ba
+
+    probs = _ba_problems(device)
+    shutil.rmtree(SCALE_OUT_DIR, ignore_errors=True)
+    on_card = torch.device(device).type == "cuda"
+    worlds = {"gloo2": ("gloo", 2), "nccl1": ("nccl" if on_card else "gloo",
+                                              1)}
+    ctx = multiprocessing.get_context("spawn")
+    procs = {}
+    for tag, (backend, n) in worlds.items():
+        d = os.path.join(SCALE_OUT_DIR, tag)
+        os.makedirs(d)
+        torch.save({k: (tuple(x.cpu() for x in st),
+                        tuple(x.cpu() for x in pr))
+                    for k, (st, pr) in probs.items()},
+                   os.path.join(d, "problems.pt"))
+        procs[tag] = [ctx.Process(target=_ba_rank,
+                                  args=(r, n, backend, d, str(device),
+                                        BA_LARGE))
+                      for r in range(n)]
+        for p in procs[tag]:
+            p.start()
+    ref = {}
+    try:
+        for name, (st, pr) in probs.items():
+            solve_ba(st, pr, iters=BA_ITERS)
+            sync()
+            t0 = time.perf_counter()
+            sol, cost, _ = solve_ba(st, pr, iters=BA_ITERS)
+            sync()
+            ref[name] = dict(seconds=time.perf_counter() - t0, p=sol.p,
+                             cost=float(cost), L=pr.mask.shape[0],
+                             K=pr.mask.shape[1])
+        deadline = time.monotonic() + BA_RANKS_TIMEOUT_S
+        for ps in procs.values():
+            for p in ps:
+                p.join(max(1.0, deadline - time.monotonic()))
+    finally:
+        hung = [p for ps in procs.values() for p in ps if p.is_alive()]
+        for p in hung:
+            p.terminate()
+            p.join()
+    if hung:
+        _fail(f"{len(hung)} BA rank(s) still running after "
+              f"{BA_RANKS_TIMEOUT_S} s")
+    out = {"solve_ba": {k: dict(seconds=v["seconds"], cost=v["cost"],
+                                L=v["L"], K=v["K"])
+                        for k, v in ref.items()}}
+    for tag, (backend, n) in worlds.items():
+        path = os.path.join(SCALE_OUT_DIR, tag, "rank0.pt")
+        if not os.path.exists(path):
+            _fail(f"BA world {tag}: rank 0 died (exit "
+                  f"{procs[tag][0].exitcode})")
+        status, res = torch.load(path)
+        if status != "ok":
+            _fail(f"BA world {tag}: {res}")
+        for name, r in ref.items():
+            got = res[name]
+            err = float(torch.max(torch.abs(got["p"].to(r["p"].device)
+                                            - r["p"])))
+            if not (abs(got["cost"] - r["cost"])
+                    <= BA_COST_RTOL * abs(r["cost"])
+                    and err <= BA_POSE_TOL):
+                _fail(f"BA world {tag}, {name}: cost {got['cost']} against "
+                      f"{r['cost']}, pose error {err} m")
+            got["pose_err_m"] = err
+            del got["p"], got["hist"]
+        out[tag] = res
+    K = {k: v["K"] for k, v in ref.items()}
+    out["all_reduce_bytes_per_iter"] = {
+        k: 4 * ((6 * v) ** 2 + 6 * v + 1) for k, v in K.items()}
+    return out
+
+
+def _lm_iteration_sol(device) -> dict:
+    """speed_of_light of one solve_ba LM iteration on BA_LARGE, beside its
+    time (CUDA events around 5 iterations after a warm one)."""
+    import torch
+    from vins_tpu_torch.io.synthetic import make_ba_problem
+    from vins_tpu_torch.parallel.dist_ba import (_lm_iteration,
+                                                 _materialize_prior)
+    from vins_tpu_torch.parallel.scaling import _Clock
+    from vins_tpu_torch.utils.profiling import speed_of_light
+
+    _, st, pr = make_ba_problem(device=device, **BA_LARGE)
+    pr = _materialize_prior(st, pr)
+    lam = torch.tensor(1e-4, device=device)
+
+    def step():
+        return _lm_iteration(st, pr, lam)
+
+    step()
+    clock = _Clock(torch.device(device))
+    clock.start()
+    for _ in range(5):
+        step()
+    measured = clock.stop() / 5
+    return dict(speed_of_light(step, measured_s=measured),
+                measured_s=measured, L=BA_LARGE["n_landmarks"],
+                K=BA_LARGE["n_poses"])
+
+
+def scale_out_phase(cfg, device, card: str) -> dict:
+    """Phase 9: the batched backend (_batched_part), the sequence scan
+    (_scan_part) and the sharded BA (_sharded_ba_part), each under a
+    StageTimers stage, then the speed of light of one LM iteration at
+    L = 2048 and the scaling report of both BA worlds. Prints the first
+    two parts as they end (with the card line)."""
+    import torch
+    from vins_tpu_torch.utils.profiling import StageTimers
+
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    timers = StageTimers()
+    t0 = time.perf_counter()
+    with timers.stage("batched backend"):
+        batched = _batched_part(cfg, device, sync)
+    print(_batched_text(batched) + f"; {card}", flush=True)
+    with timers.stage("sequence scan"):
+        scan = _scan_part(cfg, device, sync, on_card)
+    print(_scan_text(scan) + f"; {card}", flush=True)
+    with timers.stage("sharded BA"):
+        ba = _sharded_ba_part(device, sync)
+    sol = _lm_iteration_sol(device)
+    return dict(wall_s=time.perf_counter() - t0, batched=batched, scan=scan,
+                ba=ba, lm_iteration_sol=sol, stages=timers.as_dict(),
+                stage_report=timers.report())
+
+
+def _batched_text(b: dict) -> str:
+    return (f"scale-out: batched backend, {b['streams']} streams x "
+            f"{b['steps']} steps in {b['batched_s']:.2f} s: "
+            f"{b['step_s']:.3f} s a batched step, {b['frames_per_s']:.2f} "
+            f"backend frames/s in all, against "
+            f"{b['single_frames_per_s']:.2f} frames/s for one stream alone; "
+            f"{b['keyframes']} keyframe and {b['failures']} failed "
+            f"stream-steps; poses against each stream alone, the largest "
+            f"error by step: "
+            + ", ".join(f"{e:.3g}" for e in b["step_pose_err_m"]) + " m")
+
+
+def _scan_text(sc: dict) -> str:
+    return (f"scale-out: sequence scan, {sc['frames']} frames "
+            f"{sc['frame_dt']} s apart in "
+            f"{sc['wall_s']:.2f} s ({sc['frames_per_s']:.2f} frames/s), "
+            f"keyframe share {sc['keyframe_share']:.3f}, {sc['syncs']} "
+            f"synchronizing CUDA calls; the first {sc['host_frames']} "
+            f"frames within {max(sc['host_pose_err_m']):.3g} m of the host "
+            f"branch; up to {sc['max_err_m']:.4f} m from the truth (not "
+            f"gated)")
+
+
+def _report_scale_out(run: dict, card: str) -> None:
+    """The BA, scaling, speed-of-light and stage lines of phase 9 (the
+    first two parts printed as they ended)."""
+    from vins_tpu_torch.parallel import format_scaling_md
+
+    ba = run["ba"]
+    for name, ref in ba["solve_ba"].items():
+        print(f"scale-out: BA {name} (K = {ref['K']}, L = {ref['L']}, "
+              f"{BA_ITERS} LM iterations): solve_ba {ref['seconds']:.4f} s, "
+              f"2 gloo ranks {ba['gloo2'][name]['seconds']:.4f} s, 1 NCCL "
+              f"rank {ba['nccl1'][name]['seconds']:.4f} s; cost "
+              f"{ref['cost']:.6g}; poses within "
+              f"{ba['gloo2'][name]['pose_err_m']:.3g} / "
+              f"{ba['nccl1'][name]['pose_err_m']:.3g} m of solve_ba's; "
+              f"all_reduce "
+              f"{ba['all_reduce_bytes_per_iter'][name]} B an iteration; "
+              f"{card}")
+    for tag in ("gloo2", "nccl1"):
+        print(format_scaling_md(ba[tag]["scaling"],
+                                f"scale-out: scaling report, {tag} world "
+                                f"(K = {BA_LARGE['n_poses']}, L = "
+                                f"{BA_LARGE['n_landmarks']}; {card})"))
+    sol = run["lm_iteration_sol"]
+    print(f"scale-out: one solve_ba LM iteration at L = {sol['L']}: "
+          f"{sol['measured_s'] * 1e3:.3f} ms, bound "
+          f"{sol['t_bound_s'] * 1e3:.4f} ms ({sol['flops']:.4g} flops, "
+          f"{sol['bytes']:.4g} bytes), {sol['sol_fraction']:.4f} of speed "
+          f"of light; {card}")
+    print("scale-out: stages\n" + run["stage_report"])
+    print(f"scale-out: phase wall {run['wall_s']:.1f} s; {card}")
+
+
 def _loop_on_child(path: str, device: str) -> None:
     """Phase 4 in a child process: pickles ("ok", slice_phase's result) or
     ("fail", what stopped it) to path."""
@@ -1749,6 +2269,10 @@ def main() -> None:
 
     proc, loop_path = _start_loop_on(str(device))
     try:
+        run_eu = euroc_phase(device)
+        _report_euroc(run_eu, card)
+        run_so = scale_out_phase(cfg, device, card)
+        _report_scale_out(run_so, card)
         run_off = slice_phase(cfg, device, False, TRAJ_OFF, N_FRAMES_OFF,
                               max_init_at=INIT_AT_MAX_OFF)
         _report_run("loop-off", run_off, card)
@@ -1761,8 +2285,6 @@ def main() -> None:
         run_int = interactive_phase(cfg, device, TRAJ_OFF,
                                     N_FRAMES_INTERACTIVE)
         _report_interactive(run_int, card)
-        run_eu = euroc_phase(device)
-        _report_euroc(run_eu, card)
         run_loop = _join_loop_on(proc, loop_path)
     finally:
         if proc.is_alive():
@@ -1780,6 +2302,7 @@ def main() -> None:
     kernels = kernels + kernels_euroc
     report["loop"], report["loop_off"] = run_loop, run_off
     report["realtime"], report["euroc"] = run_rt, run_eu
+    report["scale_out"] = run_so
     report["interactive"] = run_int
     report["kernels"] = kernels
     os.makedirs("smoke_out", exist_ok=True)

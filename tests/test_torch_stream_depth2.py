@@ -303,7 +303,8 @@ def test_global_ba_writes_the_same_columns(ba):
     cost (1e-4 relative), and the same raw and published pose columns and
     pose-graph origin columns (1e-4 m / 1e-4 rad), then the same
     re-published poses after the pose-graph run (1e-3 m / 1e-3 rad: the
-    graph's own fp32 LM on top). A mesh raises NotImplementedError."""
+    graph's own fp32 LM on top). The harvested problem padded for a
+    sharded solve (masked zero rows) has the same cost."""
     lj, lt = ba["lj"], ba["lt"]
     n = lt.count
     cost_j = lj.global_ba()
@@ -324,8 +325,13 @@ def test_global_ba_writes_the_same_columns(ba):
                                    np.asarray(getattr(dj, name))[:n],
                                    atol=1e-3, err_msg=name)
     assert lt.n_optimizes == lj.n_optimizes
-    with pytest.raises(NotImplementedError, match="item 23"):
-        lt.global_ba(mesh=object())
+    res = ba["res_t"]
+    padded = t_harvest.pad_landmarks_to(res.state, res.prob, 8)
+    assert padded[1].mask.shape[0] % 8 == 0
+    cost = lambda st, pr: float(t_ba._ba_cost(st, t_ba._materialize_prior(
+        st, pr)))
+    assert cost(*padded) == pytest.approx(cost(res.state, res.prob),
+                                          rel=1e-6)
 
 
 class _Stub:

@@ -6,16 +6,22 @@ guess, triangulation, LM/Schur solve (the loop variant, with an inactive
 loop block on the streaming path), failure detection, marginalization
 and slide. The JAX module's three lax.conds become: both branches and a
 select for the repropagation and the prior-less re-anchoring (no sync),
-and one host branch on the keyframe flag for the marginalization (one
-device-to-host sync per backend frame).
+and for the marginalization one host branch on the keyframe flag (one
+device-to-host sync per backend frame, the main path) or, with
+select=True, both slides and a select (no host read; what vmap and
+run_sequence_scan run). Also the backend-only host shell VinsEstimator
+and run_sequence_scan, the whole-sequence replay with the state frozen
+on failure.
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
+from torch.utils._pytree import tree_map
 
+from .. import device as device_mod
 from ..config import VinsConfig
 from ..utils import lie
 from . import feature_manager as fm
@@ -176,9 +182,9 @@ def landmark_world_points(window: WindowState, feats: FeatureTable,
 
 
 def _set_row(x: torch.Tensor, i: int, v: torch.Tensor) -> torch.Tensor:
-    x = x.clone()
-    x[i] = v
-    return x
+    """x with row i replaced by v, out of place (v may be batched under
+    vmap where x is not)."""
+    return torch.cat([x[:i], v[None].to(x.dtype), x[i + 1:]], 0)
 
 
 def _reanchor(s: WindowState, ref: WindowState) -> WindowState:
@@ -196,8 +202,13 @@ def _reanchor(s: WindowState, ref: WindowState) -> WindowState:
 
 
 def backend_step(est: BackendState, inp: FrameInput, cfg: VinsConfig,
-                 ext: Extrinsics, gravity: torch.Tensor
+                 ext: Extrinsics, gravity: torch.Tensor,
+                 select: bool = False
                  ) -> Tuple[BackendState, BackendOutput]:
+    """One backend frame. select=False (the main path) branches on the
+    keyframe flag on the host; select=True computes both slides and
+    selects on the device, with no host read, for torch.func.vmap and
+    run_sequence_scan."""
     F = cfg.window.num_frames
     W = F - 1
     focal = cfg.camera.focal
@@ -292,31 +303,122 @@ def backend_step(est: BackendState, inp: FrameInput, cfg: VinsConfig,
         loop_rel_t=loop_rel_t, loop_rel_yaw=loop_rel_yaw,
         loop_good=loop_good, loop_support=n_loop.to(torch.int32))
 
-    # 8. Marginalize + slide. The keyframe flag picks the branch on the
-    #    host: the one device-to-host sync of a backend frame.
+    # 8. Marginalize + slide: MARGIN_OLD if the 2nd-newest frame is a
+    #    keyframe. On the host path the flag picks the branch (the one
+    #    device-to-host sync of a backend frame); the select variant runs
+    #    both and selects, as lax.cond does under vmap and scan.
     prob_solved = prob._replace(feats=feats)
-    if bool(is_kf):
-        prior2 = marg.marginalize_old(solved, prob_solved, cfg)
-        feats2, inv_new = fm.slide_old(solved, feats, ext, cfg)
-        win2 = marg.slide_state_old(solved)._replace(inv_depth=inv_new)
-        chunks2 = _slide_chunks_old(chunks)
-        preints2 = _slide_preints_old(preints)
+    if select:
+        slid = _sel(is_kf,
+                    _slide_old(solved, feats, chunks, preints, prob_solved,
+                               ext, cfg),
+                    _slide_new(solved, feats, chunks, preints, est.prior,
+                               cfg))
+    elif bool(is_kf):
+        slid = _slide_old(solved, feats, chunks, preints, prob_solved, ext,
+                          cfg)
     else:
-        prior2 = marg.marginalize_second_new(solved, est.prior, cfg)
-        feats2 = fm.slide_new(feats)
-        win2 = marg.slide_state_new(solved)
-        merged = marg.merge_chunks(
-            pre_mod.ImuChunk(*[c[W - 2] for c in chunks]),
-            pre_mod.ImuChunk(*[c[W - 1] for c in chunks]))
-        chunks2 = pre_mod.ImuChunk(*[
-            _set_row(_set_row(c, W - 2, m), W - 1, torch.zeros_like(c[W - 1]))
-            for c, m in zip(chunks, merged)])
-        pre_merged = pre_mod.propagate(merged, preints.linearized_ba[W - 2],
-                                       preints.linearized_bg[W - 2], cfg.imu)
-        preints2 = pre_mod.Preintegration(*[
-            _set_row(p, W - 2, m) for p, m in zip(preints, pre_merged)])
+        slid = _slide_new(solved, feats, chunks, preints, est.prior, cfg)
+    win2, feats2, chunks2, preints2, prior2 = slid
 
     new_est = BackendState(window=win2, feats=feats2, chunks=chunks2,
                            preints=preints2, prior=prior2, last_is_kf=is_kf,
                            failure=fail)
     return new_est, out
+
+
+def _slide_old(solved: WindowState, feats: FeatureTable, chunks, preints,
+               prob_solved: WindowProblem, ext: Extrinsics,
+               cfg: VinsConfig):
+    """MARGIN_OLD: the oldest frame marginalized into the prior, every
+    row shifted down one. (window, feats, chunks, preints, prior)."""
+    prior = marg.marginalize_old(solved, prob_solved, cfg)
+    feats2, inv_new = fm.slide_old(solved, feats, ext, cfg)
+    win2 = marg.slide_state_old(solved)._replace(inv_depth=inv_new)
+    return (win2, feats2, _slide_chunks_old(chunks),
+            _slide_preints_old(preints), prior)
+
+
+def _slide_new(solved: WindowState, feats: FeatureTable, chunks, preints,
+               prior: PriorFactor, cfg: VinsConfig):
+    """MARGIN_SECOND_NEW: the second-newest frame dropped, its IMU edge
+    merged into the newest one's and propagated once at W-2's
+    linearization bias. (window, feats, chunks, preints, prior)."""
+    W = cfg.window.num_frames - 1
+    prior2 = marg.marginalize_second_new(solved, prior, cfg)
+    merged = marg.merge_chunks(
+        pre_mod.ImuChunk(*[c[W - 2] for c in chunks]),
+        pre_mod.ImuChunk(*[c[W - 1] for c in chunks]))
+    chunks2 = pre_mod.ImuChunk(*[
+        _set_row(_set_row(c, W - 2, m), W - 1, torch.zeros_like(c[W - 1]))
+        for c, m in zip(chunks, merged)])
+    pre_merged = pre_mod.propagate(merged, preints.linearized_ba[W - 2],
+                                   preints.linearized_bg[W - 2], cfg.imu)
+    preints2 = pre_mod.Preintegration(*[
+        _set_row(p, W - 2, m) for p, m in zip(preints, pre_merged)])
+    return (marg.slide_state_new(solved), fm.slide_new(feats), chunks2,
+            preints2, prior2)
+
+
+def tree_stack(trees: Sequence, dim: int = 0):
+    """Stack matching trees (NamedTuples of tensors, None leaves kept)
+    along a new axis `dim`."""
+    return tree_map(lambda *xs: torch.stack(xs, dim)
+                    if isinstance(xs[0], torch.Tensor) else xs[0], *trees)
+
+
+def tree_index(tree, i: int):
+    """Every tensor leaf's entry i of its leading axis."""
+    return tree_map(lambda x: x[i] if isinstance(x, torch.Tensor) else x,
+                    tree)
+
+
+def run_sequence_scan(est: BackendState, inputs: FrameInput,
+                      cfg: VinsConfig, ext: Extrinsics,
+                      gravity: torch.Tensor):
+    """Replay a stacked input sequence (every FrameInput leaf [T, ...])
+    through the select-variant backend step: the throughput path, with
+    no device-to-host read per frame. A failed frame is flagged and the
+    state frozen at the last good window (the JAX module's lax.scan with
+    its torch.where). Returns (final state, BackendOutput stacked [T])."""
+    outs = []
+    for t in range(inputs.ids.shape[0]):
+        est2, out = backend_step(est, tree_index(inputs, t), cfg, ext,
+                                 gravity, select=True)
+        est = _sel(out.failure, est, est2)
+        outs.append(out)
+    return est, tree_stack(outs)
+
+
+class VinsEstimator:
+    """The backend-only host shell: a bootstrapped BackendState fed frame
+    by frame (the main path's host-branch step). Until a caller
+    bootstraps it with a known-good window (tests, synthetic worlds), it
+    is not initialized; a failure drops it back to uninitialized, as the
+    reference's clearState and re-init (VINS.cpp:463-467). device=None
+    means the first CUDA card."""
+
+    def __init__(self, cfg: VinsConfig, ext: Extrinsics,
+                 dtype=torch.float32, device=None):
+        dev = device_mod.resolve(device)
+        self.cfg = cfg
+        self.ext = Extrinsics(ext.tic.to(dev), ext.qic.to(dev))
+        self.gravity = torch.tensor([0.0, 0.0, cfg.imu.gravity],
+                                    dtype=dtype, device=dev)
+        self.state = BackendState.fresh(cfg, dev)
+        self.initialized = False
+
+    def bootstrap(self, window: WindowState, feats: FeatureTable,
+                  chunks: pre_mod.ImuChunk) -> None:
+        self.state = BackendState.bootstrap(self.cfg, window, feats, chunks,
+                                            self.ext, self.gravity)
+        self.initialized = True
+
+    def process_frame(self, inp: FrameInput) -> BackendOutput:
+        if not self.initialized:
+            raise RuntimeError("estimator not initialized")
+        self.state, out = backend_step(self.state, inp, self.cfg, self.ext,
+                                       self.gravity)
+        if bool(out.failure):
+            self.initialized = False
+        return out

@@ -15,10 +15,10 @@ from .state import FeatureTable, WindowState
 
 def _drop_set(dst: torch.Tensor, idx: torch.Tensor,
               src: torch.Tensor) -> torch.Tensor:
-    """dst.at[idx].set(src, mode="drop") along axis 0, idx in [0, len]."""
+    """dst.at[idx].set(src, mode="drop") along axis 0, idx in [0, len];
+    out of place (src may be batched under vmap where dst is not)."""
     ext = torch.cat([dst, torch.zeros_like(dst[:1])], 0)
-    ext[idx] = src.to(dst.dtype)
-    return ext[:-1]
+    return ext.index_put((idx.long(),), src.to(dst.dtype))[:-1]
 
 
 def ingest_frame(feats: FeatureTable, frame_idx: int, ids: torch.Tensor,
@@ -48,10 +48,10 @@ def ingest_frame(feats: FeatureTable, frame_idx: int, ids: torch.Tensor,
     obs_row = _drop_set(feats.obs[frame_idx], slot_c, obs)
     mask_row = _drop_set(feats.mask[frame_idx], slot_c,
                          torch.ones_like(write))
-    obs_new = feats.obs.clone()
-    obs_new[frame_idx] = obs_row
-    mask_new = feats.mask.clone()
-    mask_new[frame_idx] = mask_row
+    obs_new = torch.cat([feats.obs[:frame_idx], obs_row[None],
+                         feats.obs[frame_idx + 1:]], 0)
+    mask_new = torch.cat([feats.mask[:frame_idx], mask_row[None],
+                          feats.mask[frame_idx + 1:]], 0)
     is_new_write = write & ~has_match
     slot_n = torch.where(is_new_write, slot, M)
     anchor_new = _drop_set(feats.anchor, slot_n,

@@ -145,9 +145,9 @@ def marginalize_old(state: WindowState, prob: WindowProblem,
 
     J0s, r0s = _info_to_sqrt(H_keep, g_keep, cfg.solver.eig_eps,
                              cfg.solver.marg_sqrt)
-    J0 = torch.zeros((D, D), dtype=dtype, device=dev)
+    J0 = J0s.new_zeros((D, D))
     J0[:D - 15, :D - 15] = J0s
-    r0 = torch.zeros((D,), dtype=dtype, device=dev)
+    r0 = r0s.new_zeros((D,))
     r0[:D - 15] = r0s
     return PriorFactor(J=J0, r=r0, lin_p=_shift(state.p),
                        lin_q=_shift(state.q), lin_v=_shift(state.v),
@@ -180,9 +180,9 @@ def marginalize_second_new(state: WindowState, prior: PriorFactor,
     g_keep = g[keep] - Arm @ Amm_inv @ g[drop]
     J0k, r0k = _info_to_sqrt(H_keep, g_keep, cfg.solver.eig_eps,
                              cfg.solver.marg_sqrt)
-    J0 = torch.zeros((D, D), dtype=prior.J.dtype, device=dev)
+    J0 = J0k.new_zeros((D, D))
     J0[keep[:, None], keep[None, :]] = J0k
-    r0 = torch.zeros((D,), dtype=prior.J.dtype, device=dev)
+    r0 = r0k.new_zeros((D,))
     r0[keep] = r0k
 
     def swap_last(x):

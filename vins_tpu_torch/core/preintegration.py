@@ -128,7 +128,9 @@ def _transition(R0, R1, a0, a1, w, dt):
     R_a_1_x = lie.skew(a1)
     Rw = I3 - R_w_x * dtk
     R1a1 = R1 @ R_a_1_x
-    F = torch.zeros(shape + (15, 15), dtype=dtype, device=dev)
+    # Buffers from a tensor of the computation (R1a1 depends on every
+    # input), so that they are batched under vmap whenever an input is.
+    F = R1a1.new_zeros(shape + (15, 15))
     F[..., O_P:O_P + 3, O_P:O_P + 3] = I3
     F[..., O_P:O_P + 3, O_R:O_R + 3] = (-0.25 * R0 @ R_a_0_x * dt2k
                                         + (-0.25) * R1a1 @ Rw * dt2k)
@@ -145,7 +147,7 @@ def _transition(R0, R1, a0, a1, w, dt):
     F[..., O_BA:O_BA + 3, O_BA:O_BA + 3] = I3
     F[..., O_BG:O_BG + 3, O_BG:O_BG + 3] = I3
 
-    V = torch.zeros(shape + (15, 18), dtype=dtype, device=dev)
+    V = R1a1.new_zeros(shape + (15, 18))
     v_01 = -0.125 * R1a1 * dt2k * dtk
     V[..., O_P:O_P + 3, 0:3] = 0.25 * R0 * dt2k
     V[..., O_P:O_P + 3, 3:6] = v_01

@@ -103,8 +103,7 @@ def _place_blocks(J_blocks: torch.Tensor, cols: torch.Tensor,
     """[K, R, C] blocks + [K, C] column indices -> dense [K, R, D]
     (duplicate columns add, as the reference's one-hot contraction)."""
     K, R, C = J_blocks.shape
-    out = torch.zeros((K, R, D), dtype=J_blocks.dtype,
-                      device=J_blocks.device)
+    out = J_blocks.new_zeros((K, R, D))
     return out.scatter_add_(2, cols[:, None, :].expand(K, R, C).long(),
                             J_blocks)
 
@@ -277,12 +276,11 @@ def _solve_window_impl(state: WindowState, loop_pq, prob: WindowProblem,
     if loop_pq is None:
         loop_pq = (torch.zeros(3, dtype=dtype, device=dev),
                    lie.quat_identity(dtype, dev))
-    seg = torch.zeros(M, dtype=dtype, device=dev).index_add_(0, sel.mm,
-                                                             sel.w)
+    seg = sel.w.new_zeros(M).index_add_(0, sel.mm, sel.w)
     landmark_active = (seg > 0).to(dtype)
     if sel_loop is not None:
-        seg_l = torch.zeros(M, dtype=dtype, device=dev).index_add_(
-            0, sel_loop.mm, sel_loop.w)
+        seg_l = sel_loop.w.new_zeros(M).index_add_(0, sel_loop.mm,
+                                                   sel_loop.w)
         landmark_active = torch.maximum(landmark_active,
                                         (seg_l > 0).to(dtype))
 

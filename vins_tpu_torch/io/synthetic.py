@@ -1,14 +1,17 @@
-"""Synthetic visual-inertial world (port of the streaming parts of
-vins_tpu/io/synthetic.py): the closed-form circle trajectory, the
-per-frame sequence generator, the ray-cast textured-cylinder renderer,
-and a ground-truth initializer for pipeline.VinsSystem's test seam
-(`initializer=`), which the system otherwise fills by visual-inertial
-initialization.
+"""Synthetic visual-inertial world (port of vins_tpu/io/synthetic.py):
+the closed-form circle trajectory, one ground-truth window
+(make_synthetic_window), the per-frame sequence generator and bench.py's
+bootstrapped backend sequence (build_backend_inputs), the ray-cast
+textured-cylinder renderer, a synthetic global-BA problem
+(make_ba_problem) and a ground-truth initializer for
+pipeline.VinsSystem's test seam (`initializer=`), which the system
+otherwise fills by visual-inertial initialization.
 
-The sequence and texture come from numpy with a seed, exactly as in the
-JAX module; the renderer runs in PyTorch on any device and draws its
-image noise from a torch.Generator (so noisy frames differ from the JAX
-renders; noise-free renders agree).
+The window, the sequence, the BA problem and the texture come from numpy
+with a seed, the same draws in the same order as in the JAX module; the
+renderer runs in PyTorch on any device and draws its image noise from a
+torch.Generator (so noisy frames differ from the JAX renders; noise-free
+renders agree).
 """
 from __future__ import annotations
 
@@ -41,6 +44,118 @@ def _traj(t, r=3.0, w=0.6, bob=0.3, bob_w=1.7):
     return p, v, a, yaw, yaw_rate
 
 
+class SyntheticWindow(NamedTuple):
+    """Ground-truth window snapshot, raw IMU chunks, landmark geometry."""
+
+    state: WindowState           # ground-truth window state (F frames)
+    chunks: ImuChunk             # stacked [W, N] raw IMU between frames
+    feats: FeatureTable          # observations of the landmarks
+    landmarks: torch.Tensor      # [L, 3] world points
+    ext: Extrinsics
+    gravity: torch.Tensor        # [3]
+    timestamps: torch.Tensor     # [F]
+
+
+_R_IC = np.array([[0.0, 0.0, 1.0], [-1.0, 0.0, 0.0], [0.0, -1.0, 0.0]],
+                 np.float32)
+_T_IC = np.array([0.05, 0.0, 0.02], np.float32)
+
+
+def make_synthetic_window(cfg: VinsConfig, n_landmarks: int = 80,
+                          seed: int = 0, noise_px: float = 0.0,
+                          imu_noise: float = 0.0, t0: float = 0.0,
+                          frame_dt: float = 0.1,
+                          device=None) -> SyntheticWindow:
+    """One full window of ground truth around the circle: frame states,
+    the IMU chunks between frames (row 0 is the sample at frame e), the
+    landmarks' observations, anchors (first observing frame) and
+    ground-truth inverse depths. noise_px: observation noise in pixels;
+    imu_noise: a multiplier on the config's noise densities. The same
+    numpy draws as the JAX generator for the same seed. device=None
+    means the first CUDA card."""
+    device = device_mod.resolve(device)
+    rng = np.random.default_rng(seed)
+    F = cfg.window.num_frames
+    W = F - 1
+    M = cfg.window.max_landmarks
+    N = cfg.window.max_imu_per_edge
+    gravity = np.array([0.0, 0.0, cfg.imu.gravity])
+
+    t_frames = t0 + frame_dt * np.arange(F)
+    p_f, v_f, _, yaw_f, _ = _traj(t_frames)
+    q_f = lie.np_yaw_quat(yaw_f)
+
+    n_sub = N - 1
+    dt_imu = frame_dt / n_sub
+    dts = np.zeros((W, N), np.float32)
+    accs = np.zeros((W, N, 3), np.float32)
+    gyrs = np.zeros((W, N, 3), np.float32)
+    for e in range(W):
+        ts = t_frames[e] + dt_imu * np.arange(N)
+        _, _, a_w, yaw, yaw_rate = _traj(ts)
+        Rwb = lie.np_quat_to_rotmat(lie.np_yaw_quat(yaw))
+        accs[e] = np.einsum("nij,nj->ni", Rwb.transpose(0, 2, 1),
+                            a_w + gravity)
+        gyrs[e] = np.stack([np.zeros_like(yaw), np.zeros_like(yaw),
+                            yaw_rate], -1)
+        dts[e, 1:] = dt_imu
+    if imu_noise > 0:
+        sq = 1.0 / np.sqrt(dt_imu)
+        accs += (rng.normal(size=accs.shape) * cfg.imu.acc_n * imu_noise
+                 * sq * 0.01)
+        gyrs += (rng.normal(size=gyrs.shape) * cfg.imu.gyr_n * imu_noise
+                 * sq * 0.01)
+
+    ang = rng.uniform(0, 2 * np.pi, n_landmarks)
+    rad = rng.uniform(5.0, 9.0, n_landmarks)
+    height = rng.uniform(-1.5, 1.5, n_landmarks)
+    lms = np.stack([rad * np.cos(ang), rad * np.sin(ang), height], -1)
+
+    obs = np.zeros((F, M, 2), np.float32)
+    mask = np.zeros((F, M), bool)
+    Rwb_f = lie.np_quat_to_rotmat(q_f)
+    n_use = min(n_landmarks, M)
+    fov_lim = 0.7
+    for f in range(F):
+        pts_b = np.einsum("ij,nj->ni", Rwb_f[f].T, lms[:n_use] - p_f[f])
+        pts_c = np.einsum("ij,nj->ni", _R_IC.T, pts_b - _T_IC)
+        z = pts_c[:, 2]
+        ok = z > 0.3
+        xy = pts_c[:, :2] / np.maximum(z[:, None], 1e-6)
+        ok &= (np.abs(xy[:, 0]) < fov_lim) & (np.abs(xy[:, 1]) < fov_lim)
+        if noise_px > 0:
+            xy = xy + rng.normal(size=xy.shape) * (noise_px / cfg.camera.focal)
+        obs[f, :n_use] = xy
+        mask[f, :n_use] = ok
+
+    first = np.argmax(mask, axis=0).astype(np.int32)
+    valid = mask.sum(axis=0) >= 2
+    track_id = np.where(valid, np.arange(M), -1).astype(np.int32)
+    inv_depth = np.zeros(M, np.float32)
+    for m in range(n_use):
+        if not valid[m]:
+            continue
+        f = first[m]
+        pts_b = Rwb_f[f].T @ (lms[m] - p_f[f])
+        pts_c = _R_IC.T @ (pts_b - _T_IC)
+        inv_depth[m] = 1.0 / max(pts_c[2], 1e-3)
+
+    T = lambda x, dt=torch.float32: torch.as_tensor(
+        np.asarray(x), dtype=dt, device=device)
+    z3 = T(np.zeros((F, 3)))
+    state = WindowState(p=T(p_f), q=T(q_f), v=T(v_f), ba=z3,
+                        bg=z3.clone(), inv_depth=T(inv_depth))
+    feats = FeatureTable(obs=T(obs), mask=T(mask, torch.bool),
+                         anchor=T(first, torch.int32),
+                         valid=T(valid, torch.bool),
+                         track_id=T(track_id, torch.int32))
+    return SyntheticWindow(
+        state=state, chunks=ImuChunk(T(dts), T(accs), T(gyrs)), feats=feats,
+        landmarks=T(lms), ext=Extrinsics(tic=T(_T_IC),
+                                         qic=T(lie.np_rotmat_to_quat(_R_IC))),
+        gravity=T(gravity), timestamps=T(t_frames))
+
+
 class SyntheticSequence(NamedTuple):
     p: torch.Tensor           # [N, 3] ground-truth positions
     q: torch.Tensor           # [N, 4]
@@ -53,11 +168,6 @@ class SyntheticSequence(NamedTuple):
     ext: Extrinsics
     gravity: torch.Tensor
     timestamps: torch.Tensor  # [N]
-
-
-_R_IC = np.array([[0.0, 0.0, 1.0], [-1.0, 0.0, 0.0], [0.0, -1.0, 0.0]],
-                 np.float32)
-_T_IC = np.array([0.05, 0.0, 0.02], np.float32)
 
 
 def make_synthetic_sequence(cfg: VinsConfig, n_frames: int = 60,
@@ -234,6 +344,93 @@ def render_sequence_images(seq: SyntheticSequence, cfg: VinsConfig,
     return render_camera_frames(p_cam, R_wc, cfg, seed, wall_radius,
                                 floor_z, ceil_z, noise_sigma,
                                 distorted=distorted, device=device)
+
+
+def make_ba_problem(n_poses: int = 16, n_landmarks: int = 512, seed: int = 0,
+                    noise_px: float = 0.0, pose_noise: float = 0.0,
+                    point_noise: float = 0.0, focal: float = 460.0,
+                    device=None):
+    """A global BA instance: (ground truth, perturbed initial guess,
+    problem) as parallel.dist_ba types. Camera poses walk the circle
+    looking outward, landmarks fill the annulus; landmarks seen fewer
+    than twice are masked out; poses 0 and 1 are frozen at ground truth
+    (gauge and scale). The same numpy draws as the JAX generator for the
+    same seed. device=None means the first CUDA card."""
+    from ..parallel.dist_ba import BAProblem, BAState
+
+    device = device_mod.resolve(device)
+    rng = np.random.default_rng(seed)
+    t = np.linspace(0.0, 2.2, n_poses)
+    p_f, _, _, yaw_f, _ = _traj(t)
+    R_wc = lie.np_quat_to_rotmat(lie.np_yaw_quat(yaw_f)) @ _R_IC
+    q_wc = lie.np_rotmat_to_quat(R_wc)
+
+    ang = rng.uniform(0, 2 * np.pi, n_landmarks)
+    rad = rng.uniform(5.0, 9.0, n_landmarks)
+    height = rng.uniform(-1.5, 1.5, n_landmarks)
+    lms = np.stack([rad * np.cos(ang), rad * np.sin(ang), height],
+                   -1).astype(np.float32)
+
+    obs = np.zeros((n_landmarks, n_poses, 2), np.float32)
+    mask = np.zeros((n_landmarks, n_poses), np.float32)
+    for k in range(n_poses):
+        pc = (lms - p_f[k]) @ R_wc[k]          # R_wcᵀ (X - p)
+        z = pc[:, 2]
+        ok = z > 0.5
+        xy = pc[:, :2] / np.maximum(z[:, None], 1e-6)
+        ok &= (np.abs(xy[:, 0]) < 0.8) & (np.abs(xy[:, 1]) < 0.8)
+        if noise_px > 0:
+            xy = xy + rng.normal(size=xy.shape) * (noise_px / focal)
+        obs[:, k] = xy
+        mask[:, k] = ok
+    mask[(mask.sum(1) < 2)] = 0.0
+
+    p0 = p_f + rng.normal(size=p_f.shape) * pose_noise
+    p0[:2] = p_f[:2]
+    dth = rng.normal(size=(n_poses, 3)) * pose_noise * 0.2
+    dth[:2] = 0.0
+    q0 = lie.np_quat_mul(q_wc, lie.np_so3_exp_quat(dth))
+    x0 = lms + rng.normal(size=lms.shape) * point_noise
+    pose_free = np.ones(n_poses, np.float32)
+    pose_free[:2] = 0.0
+
+    T = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.float32,
+                                  device=device)
+    gt = BAState(p=T(p_f), q=T(q_wc), pts=T(lms))
+    init = BAState(p=T(p0), q=T(q0), pts=T(x0))
+    prob = BAProblem(obs=T(obs), mask=T(mask), pose_free=T(pose_free))
+    return gt, init, prob
+
+
+def build_backend_inputs(cfg: VinsConfig, n_frames: int, seed: int = 0,
+                         frame_dt: float = 0.1, device=None):
+    """bench.py's backend sequence (build_backend_inputs) in the port:
+    make_synthetic_sequence over F + n_frames frames (300 landmarks,
+    0.5 px noise), the first F frames ingested and triangulated at their
+    ground-truth poses and bootstrapped, the rest stacked as FrameInput
+    [n_frames]. Returns (BackendState, FrameInput, ext, gravity).
+    device=None means the first CUDA card."""
+    from ..core.estimator import BackendState, FrameInput
+
+    F = cfg.window.num_frames
+    seq = make_synthetic_sequence(cfg, n_frames=F + n_frames,
+                                  n_landmarks=300, seed=seed, noise_px=0.5,
+                                  frame_dt=frame_dt, device=device)
+    dev = seq.p.device
+    feats = FeatureTable.empty(F, cfg.window.max_landmarks, device=dev)
+    for f in range(F):
+        feats = fm.ingest_frame(feats, f, seq.ids[f], seq.obs[f],
+                                seq.obs_valid[f])
+    chunks = ImuChunk(*[x[1:F] for x in seq.chunks])
+    win = BackendState.fresh(cfg, dev).window._replace(
+        p=seq.p[:F], q=seq.q[:F], v=seq.v[:F])
+    win = fm.triangulate(win, feats, seq.ext, cfg)
+    est = BackendState.bootstrap(cfg, win, feats, chunks, seq.ext,
+                                 seq.gravity)
+    inputs = FrameInput(chunk=ImuChunk(*[x[F:] for x in seq.chunks]),
+                        ids=seq.ids[F:], obs=seq.obs[F:],
+                        obs_valid=seq.obs_valid[F:])
+    return est, inputs, seq.ext, seq.gravity
 
 
 def ground_truth_initializer(seq: SyntheticSequence, cfg: VinsConfig):

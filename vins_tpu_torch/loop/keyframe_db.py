@@ -675,26 +675,42 @@ class LoopCloser:
                   max_landmarks: int = 512, defer_fetch: bool = False):
         """Global refinement over the map: the newest max_keyframes rows'
         poses and their multi-keyframe tracks harvested into a BAProblem
-        and solved (parallel.dist_ba.solve_ba, one device). The refined raw
-        poses go to p_origin/q_origin and the pose graph's origin columns,
-        their drift-composed version to p/q; with live loop edges the pose
-        graph runs again to re-publish them. Returns the final cost (None
-        with defer_fetch, or when the map has no multi-keyframe track).
-        mesh: the JAX package's landmark-sharded solve is not ported
-        (ROADMAP item 23); anything but None raises NotImplementedError."""
-        from ..parallel.dist_ba import solve_ba
-        from ..parallel.harvest import apply_ba_result, harvest_ba_problem
+        and solved. The refined raw poses go to p_origin/q_origin and the
+        pose graph's origin columns, their drift-composed version to p/q;
+        with live loop edges the pose graph runs again to re-publish them.
+        Returns the final cost (None with defer_fetch, or when the map has
+        no multi-keyframe track).
 
-        if mesh is not None:
-            raise NotImplementedError(
-                "the landmark-sharded global BA is not ported (ROADMAP "
-                "item 23); call global_ba(mesh=None) for one device")
+        mesh=None solves on this device (parallel.dist_ba.solve_ba). A
+        torch.distributed mesh with a `block` axis makes this a collective
+        call: this LoopCloser, on the first rank of its block group, owns
+        the DB, harvests the problem, pads L to a multiple of the block
+        size and broadcasts it with `iters`; every rank of the group
+        solves its landmark shard (solve_ba_sharded), the others through
+        parallel.dist_ba.global_ba_follower, and the result is written
+        back here."""
+        from ..parallel.dist_ba import (share_ba_problem, solve_ba,
+                                        solve_ba_sharded)
+        from ..parallel.harvest import (apply_ba_result, harvest_ba_problem,
+                                        pad_landmarks_to)
+        from ..parallel.mesh import BLOCK_AXIS, axis_size
+
         res = harvest_ba_problem(self.db, self.count, self.tic, self.qic,
                                  max_keyframes=max_keyframes,
                                  max_landmarks=max_landmarks)
-        if res is None:
+        if mesh is not None:
+            padded = (() if res is None else pad_landmarks_to(
+                res.state, res.prob, axis_size(mesh, BLOCK_AXIS)))
+            shared = share_ba_problem(mesh, *padded, iters=iters)
+            if shared is None:
+                return None
+            state, prob, _ = shared
+            solved, cost, _ = solve_ba_sharded(state, prob, mesh,
+                                               iters=iters)
+        elif res is None:
             return None
-        solved, cost, _ = solve_ba(res.state, res.prob, iters=iters)
+        else:
+            solved, cost, _ = solve_ba(res.state, res.prob, iters=iters)
         self.db = apply_ba_result(self.db, res, solved, self.tic, self.qic,
                                   r_drift=self._r_drift_dev,
                                   t_drift=self._t_drift_dev)

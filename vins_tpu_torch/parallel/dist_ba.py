@@ -1,5 +1,6 @@
-"""Schur-complement bundle adjustment on one device (port of the
-single-device path of vins_tpu/parallel/dist_ba.py).
+"""Schur-complement bundle adjustment, on one device or with the
+landmarks sharded over a torch.distributed mesh (port of
+vins_tpu/parallel/dist_ba.py).
 
 Per LM iteration: per landmark-keyframe residuals and their Jacobians
 (forward mode over the 9-dim pose-and-point tangent), the block-diagonal
@@ -9,17 +10,28 @@ solved by Cholesky, and the landmark back-substitution. The accept/reject
 of each step is a torch.where on the state: a solve runs its fixed
 iteration count without a host decision. Poses are gauge-fixed through
 per-pose freeze flags; an optional position prior keeps the IMU-metric
-scale (BAProblem). The JAX module's landmark-sharded solve
-(solve_ba_sharded, a psum over the mesh's block axis) is not ported.
+scale (BAProblem).
+
+solve_ba_sharded splits the landmarks, their observations and masks over
+the mesh's `block` axis and replicates the poses and the prior. Each rank
+builds its shard's part of the reduced camera system; one all_reduce of a
+packed [6K·6K + 6K + 1] buffer (H_s, g_s, cost) sums it, where the JAX
+module psums the three, and a second all_reduce sums the candidate's
+cost: two collectives per LM iteration. The prior is added after the
+reduction, every rank solves the same 6K x 6K system, and the landmark
+back-substitution stays local. global_ba_follower is how the ranks that
+do not own the keyframe DB join LoopCloser.global_ba(mesh=...).
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 from torch.func import jvp, vmap
 
 from ..utils import lie
+from .mesh import BLOCK_AXIS, axis_index, axis_size, shard_leading
 
 
 class BAProblem(NamedTuple):
@@ -104,15 +116,24 @@ def _local_normal_eqs(state: BAState, prob: BAProblem):
     return _block_diag(Hcc_k), g_c, S, gs_corr, Hpp_inv, B, g_p, cost
 
 
-def _lm_iteration(state: BAState, prob: BAProblem, lam: torch.Tensor):
+def _lm_iteration(state: BAState, prob: BAProblem, lam: torch.Tensor,
+                  group=None):
     """One damped LM step: the candidate state and the current cost. A
     failed Cholesky gives a NaN step (rejected by the caller). The prior
-    fields are set (_materialize_prior)."""
+    fields are set (_materialize_prior). With a process group, H_s, g_s
+    and the cost are summed over its landmark shards in one all_reduce."""
     K = prob.mask.shape[1]
     Hcc, g_c, S, gs_corr, Hpp_inv, B, g_p, cost = _local_normal_eqs(
         state, prob)
     H_s = Hcc - S
     g_s = g_c - gs_corr
+    if group is not None:
+        n = H_s.numel()
+        buf = torch.cat([H_s.reshape(-1), g_s, cost.reshape(1)])
+        dist.all_reduce(buf, group=group)
+        H_s, g_s, cost = buf[:n].reshape(H_s.shape), buf[n:-1], buf[-1]
+    # The prior is replicated: added after the reduction so that the
+    # shards do not multiply it.
     w2 = prob.prior_w * prob.prior_w
     diag = torch.zeros((K, 6), dtype=H_s.dtype, device=H_s.device)
     diag[:, :3] = (w2 * prob.pose_free)[:, None]
@@ -135,25 +156,30 @@ def _lm_iteration(state: BAState, prob: BAProblem, lam: torch.Tensor):
     return BAState(p=p_new, q=q_new, pts=state.pts + dx_p), cost
 
 
-def _ba_cost(state: BAState, prob: BAProblem) -> torch.Tensor:
+def _ba_cost(state: BAState, prob: BAProblem, group=None) -> torch.Tensor:
     # The residuals of _landmark_blocks at a zero step: through
     # pose_retract, which renormalizes q.
     p, q = lie.pose_retract(state.p, state.q, torch.zeros_like(state.p)
                             .repeat(1, 2))
     r = _residual_lk(state.pts[:, None, :], prob.obs, p[None],
                      q[None]) * prob.mask[..., None]
+    c = 0.5 * torch.sum(r * r)
+    if group is not None:
+        c = c.reshape(1)
+        dist.all_reduce(c, group=group)
+        c = c[0]
     dp = (state.p - prob.prior_p) * prob.pose_free[:, None]
-    return 0.5 * torch.sum(r * r) + 0.5 * (prob.prior_w ** 2) * torch.sum(
-        dp * dp)
+    return c + 0.5 * (prob.prior_w ** 2) * torch.sum(dp * dp)
 
 
-def _solve_ba_core(state: BAState, prob: BAProblem, iters: int):
+def _solve_ba_core(state: BAState, prob: BAProblem, iters: int,
+                   group=None):
     lam = torch.tensor(1e-4, dtype=state.p.dtype, device=state.p.device)
-    cost = _ba_cost(state, prob)
+    cost = _ba_cost(state, prob, group)
     hist = []
     for _ in range(iters):
-        cand, _ = _lm_iteration(state, prob, lam)
-        new_cost = _ba_cost(cand, prob)
+        cand, _ = _lm_iteration(state, prob, lam, group)
+        new_cost = _ba_cost(cand, prob, group)
         good = torch.isfinite(new_cost) & (new_cost < cost)
         state = BAState(*(torch.where(good, b, a)
                           for a, b in zip(state, cand)))
@@ -177,3 +203,91 @@ def solve_ba(state: BAState, prob: BAProblem, iters: int = 10):
     """LM Schur BA on one device. Returns (state, final cost, per-iteration
     costs [iters]), all on the state's device."""
     return _solve_ba_core(state, _materialize_prior(state, prob), iters)
+
+
+def solve_ba_sharded(state: BAState, prob: BAProblem, mesh, iters: int = 10):
+    """The landmark-sharded BA over the mesh's `block` axis, called by every
+    rank of the block group with the same full problem. L must divide by
+    the block size (harvest.pad_landmarks_to pads it). Returns (state,
+    final cost, per-iteration costs [iters]): the poses, the costs and
+    all the points, in landmark order, the same on every rank."""
+    prob = _materialize_prior(state, prob)
+    group = mesh.get_group(BLOCK_AXIS)
+    n = axis_size(mesh, BLOCK_AXIS)
+    st, cost, hist = _solve_ba_core(
+        state._replace(pts=shard_leading(state.pts, mesh, BLOCK_AXIS)),
+        prob._replace(obs=shard_leading(prob.obs, mesh, BLOCK_AXIS),
+                      mask=shard_leading(prob.mask, mesh, BLOCK_AXIS)),
+        iters, group)
+    # The shards gathered in landmark order: an all_reduce of the
+    # zero-padded shards (exact; gloo reduces CUDA tensors but does not
+    # gather them).
+    c = st.pts.shape[0]
+    i = axis_index(mesh, BLOCK_AXIS)
+    pts = st.pts.new_zeros((n * c, 3))
+    pts[i * c:(i + 1) * c] = st.pts
+    dist.all_reduce(pts, group=group)
+    return st._replace(pts=pts), cost, hist
+
+
+def mesh_device(mesh) -> torch.device:
+    """The device this rank's tensors live on for the mesh's backend."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def share_ba_problem(mesh, state: Optional[BAState] = None,
+                     prob: Optional[BAProblem] = None, iters: int = 0):
+    """Broadcast a BA problem and its LM iteration count from the first
+    rank of this rank's block group (which passes them; no state for "no
+    problem") to the others (which pass nothing and allocate on
+    mesh_device). One broadcast of the sizes and the count, one of the
+    packed values. Returns (state, prob, iters) with the prior
+    materialized, or None on every rank."""
+    group = mesh.get_group(BLOCK_AXIS)
+    src = dist.get_global_rank(group, 0)
+    owner = dist.get_rank() == src
+    dev = (state.p.device if owner and state is not None
+           else mesh_device(mesh))
+    if owner and state is not None:
+        prob = _materialize_prior(state, prob)
+        L, K = prob.mask.shape
+    else:
+        L = K = iters = 0
+    sizes = torch.tensor([L, K, iters], dtype=torch.int64, device=dev)
+    dist.broadcast(sizes, src, group=group)
+    L, K, iters = (int(v) for v in sizes.tolist())
+    if K == 0:
+        return None
+    shapes = [(K, 3), (K, 4), (L, 3), (L, K, 2), (L, K), (K,), (K, 3), ()]
+    if owner:
+        buf = torch.cat([t.reshape(-1).to(torch.float32) for t in (
+            *state, prob.obs, prob.mask, prob.pose_free, prob.prior_p,
+            prob.prior_w)])
+    else:
+        n = sum(torch.Size(s).numel() for s in shapes)
+        buf = torch.empty(n, dtype=torch.float32, device=dev)
+    dist.broadcast(buf, src, group=group)
+    vals, o = [], 0
+    for s in shapes:
+        c = torch.Size(s).numel()
+        vals.append(buf[o:o + c].reshape(s))
+        o += c
+    return (BAState(*vals[:3]),
+            BAProblem(obs=vals[3], mask=vals[4], pose_free=vals[5],
+                      prior_p=vals[6], prior_w=vals[7]), iters)
+
+
+def global_ba_follower(mesh):
+    """The part of LoopCloser.global_ba(mesh=...) that a rank without the
+    keyframe DB runs: receive the padded problem and the iteration count
+    from its block group's first rank and solve its landmark shard.
+    Returns the final cost, or None when the map had no problem to
+    solve."""
+    shared = share_ba_problem(mesh)
+    if shared is None:
+        return None
+    state, prob, iters = shared
+    _, cost, _ = solve_ba_sharded(state, prob, mesh, iters=iters)
+    return float(cost)

@@ -1,7 +1,8 @@
 """A global BA problem harvested from the live keyframe database (port of
 vins_tpu/parallel/harvest.py): the DB's raw keyframe poses, the
 per-keyframe window features with their world points, and their global
-track ids become a BAProblem; the solved poses are written back.
+track ids become a BAProblem; the solved poses are written back; a
+problem is padded for a landmark-sharded solve.
 """
 from __future__ import annotations
 
@@ -115,3 +116,17 @@ def apply_ba_result(db, res: HarvestResult, solved: BAState,
         p=db.p.index_copy(0, idx, p_pub), q=db.q.index_copy(0, idx, q_pub),
         p_origin=db.p_origin.index_copy(0, idx, p_b),
         q_origin=db.q_origin.index_copy(0, idx, q_b))
+
+
+def pad_landmarks_to(state: BAState, prob: BAProblem, multiple: int):
+    """(state, prob) with L padded by masked zero rows up to a multiple of
+    `multiple` (the block size of a sharded solve). A padded row has no
+    observation: the solve leaves its point at zero, and its cost and
+    normal equations are zero."""
+    L = prob.mask.shape[0]
+    n = -(-L // multiple) * multiple - L
+    if n == 0:
+        return state, prob
+    pad = lambda a: torch.cat([a, a.new_zeros((n,) + a.shape[1:])], 0)
+    return (state._replace(pts=pad(state.pts)),
+            prob._replace(obs=pad(prob.obs), mask=pad(prob.mask)))

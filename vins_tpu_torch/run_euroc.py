@@ -8,15 +8,22 @@ Frames go through VinsSystem.process_frame until the system has
 initialized; with --stream the rest go through process_stream (blocks of
 48, depth 2) in super-blocks of 480 frames. Evaluates the ATE and RPE
 against the sequence's ground truth when it has one, and the keyframe
-trajectory before and after the optional end-of-run global BA (one
-device). Writes run.npz and keyframe_trajectory.npz under --out and
-prints the result dict as one JSON line. --device defaults to the first
-CUDA card.
+trajectory before and after the optional end-of-run global BA. Writes
+run.npz and keyframe_trajectory.npz under --out and prints the result
+dict as one JSON line. --device defaults to the first CUDA card.
+
+Launched with more than one rank (WORLD_SIZE > 1, e.g. `torchrun
+--nproc_per_node=N -m vins_tpu_torch.run_euroc ...` on N cards), rank 0
+runs the stream on cuda:LOCAL_RANK and every rank joins the global BA,
+its landmarks sharded over a mesh of all ranks (NCCL, one card per rank;
+gloo with --device cpu); the other ranks wait for it inside the process
+group's timeout (--dist-timeout). With one rank nothing changes.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import datetime
 import json
 import os
 import sys
@@ -24,6 +31,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import device as device_mod
 from . import euroc_config
@@ -52,11 +60,22 @@ def main(argv=None):
                          "keyframe)")
     ap.add_argument("--global-ba", action="store_true",
                     help="end-of-run global bundle adjustment over the "
-                         "keyframe map (LoopCloser.global_ba, one device)")
+                         "keyframe map (LoopCloser.global_ba; sharded over "
+                         "the ranks when WORLD_SIZE > 1)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the first CUDA card)")
+    ap.add_argument("--dist-timeout", type=float, default=7200.0,
+                    help="seconds the ranks other than 0 may wait for "
+                         "rank 0's stream (WORLD_SIZE > 1)")
     args = ap.parse_args(argv)
-    dev = device_mod.resolve(args.device)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    mesh = None
+    if world > 1:
+        dev, mesh = _join_world(args, world)
+        if dist.get_rank() != 0:
+            return _follow(args, mesh)
+    else:
+        dev = device_mod.resolve(args.device)
     os.makedirs(args.out, exist_ok=True)
 
     cfg = euroc_config()
@@ -165,11 +184,14 @@ def main(argv=None):
         if pre is not None:
             result["kf_ate_corrected"] = round(pre, 4)
 
-    if args.global_ba and lc is not None and lc.count >= 2:
-        cost = lc.global_ba()
+    # With a mesh every rank waits in the BA, so rank 0 joins it whatever
+    # the map holds (an empty harvest releases them).
+    if args.global_ba and lc is not None and (lc.count >= 2
+                                              or mesh is not None):
+        cost = lc.global_ba(mesh=mesh)
         result["global_ba_cost"] = (round(cost, 4)
                                     if cost is not None else None)
-        result["global_ba_devices"] = 1
+        result["global_ba_devices"] = world
         if "kf_ate_corrected" in result:
             post = kf_ate(lc.db.p[:lc.count].cpu().numpy())
             result["kf_ate_pre_ba"] = result["kf_ate_corrected"]
@@ -182,6 +204,39 @@ def main(argv=None):
         kt, kp, kq = lc.trajectory()
         np.savez(os.path.join(args.out, "keyframe_trajectory.npz"),
                  t=kt, p=kp, q=kq)
+    if mesh is not None:
+        dist.destroy_process_group()
+    return result
+
+
+def _join_world(args, world: int):
+    """Join the process group torchrun describes (env://) and make the
+    (1, world) mesh. Returns (this rank's device, mesh)."""
+    local = int(os.environ.get("LOCAL_RANK", os.environ.get("RANK", "0")))
+    if args.device is None:
+        device_mod.resolve(None)          # raises without a card
+        dev = torch.device("cuda", local)
+    else:
+        dev = torch.device(args.device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "nccl" if dev.type == "cuda" else "gloo",
+        timeout=datetime.timedelta(seconds=args.dist_timeout))
+    from .parallel.mesh import make_mesh
+    return dev, make_mesh(block=world, device_type=dev.type)
+
+
+def _follow(args, mesh):
+    """A rank other than 0: its landmark shards of rank 0's global BA."""
+    from .parallel.dist_ba import global_ba_follower
+
+    cost = None
+    if args.global_ba and not args.no_loop:
+        cost = global_ba_follower(mesh)
+    result = {"rank": dist.get_rank(), "global_ba_cost": cost}
+    dist.destroy_process_group()
+    print(json.dumps(result))
     return result
 
 
