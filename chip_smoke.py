@@ -32,8 +32,8 @@ Phases (any failure exits non-zero, and no result line is printed):
                 shape, a 752x480 frame pair rendered through the EuRoC
                 camera's distortion (row pitches of 3008, 1504 and 752
                 bytes), with the same tolerances;
-  4. loop     — (in a spawned child process, alongside phases 5-9 in this
-                one, which runs 8 and 9 first, then 5-7, so that the
+  4. loop     — (in a spawned child process, alongside phases 5-10 in
+                this one, which runs 8, 9 and 10 first, then 5-7, so that the
                 script ends well inside its time on a slow host; each
                 process counts its own launches and syncs, and the
                 frames/s of these runs are read under that contention)
@@ -92,7 +92,27 @@ Phases (any failure exits non-zero, and no result line is printed):
                 batched step against one stream, the scan's frames/s,
                 keyframe share and syncs, each BA's seconds and
                 all_reduce payload, both worlds' scaling reports and the
-                speed of light of one LM iteration at L = 2048.
+                speed of light of one LM iteration at L = 2048;
+ 10. last-slice — (after 9, beside the loop-on child) tracking against
+                the renderer's exact geometry: FeatureTracker over frames
+                0-1 of tests/test_frontend.py's fixture (4 levels, 10 fps)
+                against ground_truth_correspondence, with that test's
+                bounds (>= 40 common tracks, median < 0.8 px, > 90% under
+                2.5 px), and the same numbers, not gated, on the demo's
+                30 Hz sequence at 3 levels; the demo,
+                run_synthetic.main(--frames 120 --loop): it must
+                initialize, give finite poses, write both PNGs (640x640
+                and 640x480, not blank) and launch klt_fb_ncc once per
+                tracked frame and K3 from the raw frame once per keyframe
+                insert; the native sensor runtime (native/runtime.cpp
+                built with g++ into vins_tpu_torch/_build/) against
+                StreamSync on the card, tests/test_native_runtime.py's
+                stream and bounds; the port's repaired native prefetcher
+                over phase 8's 360 PNGs (4 workers, queue 2) under a 60 s
+                watchdog, each frame equal to load_gray_png's, then
+                run_euroc --native-loader --stream --no-loop over 96 of
+                them (initialized, finite, klt_fb_ncc once per tracked
+                frame). Prints each part's numbers and the phase's wall.
 Every run prints its initialization attempts (frame, status, wall time,
 synchronizing CUDA calls); the interactive run prints the per-frame wall
 time of the motion-only solve, a backend frame and a keyframe insert.
@@ -215,6 +235,26 @@ BA_POSE_TOL = 1e-4      # m
 BA_RANKS_TIMEOUT_S = 300
 EUROC_BA_PROBLEM = os.path.join("smoke_out", "euroc_ba_problem.pt")
 SCALE_OUT_DIR = os.path.join("smoke_out", "scale_out")
+# Phase 10 (last slice). Tracking against the renderer's exact geometry:
+# tests/test_frontend.py:24-61's fixture (10 fps, so 4 pyramid levels)
+# and bounds.
+GEOM_FRAMES = 26
+GEOM_LANDMARKS = 50
+GEOM_SEED = 9
+GEOM_TRAJ = dict(w=0.35, bob=0.15)
+GEOM_COMMON_MIN = 40
+GEOM_MEDIAN_MAX = 0.8   # px
+GEOM_FAR_PX = 2.5
+GEOM_NEAR_SHARE = 0.9   # of the common tracks within GEOM_FAR_PX
+# The demo at the JAX demo's default length (examples/run_synthetic.py:25).
+DEMO_FRAMES = 120
+DEMO_OUT = os.path.join("smoke_out", "synthetic")
+# The native loader decodes phase 8's fixture within this, or the phase
+# fails; then run_euroc --native-loader runs this many of its frames.
+LOADER_TIMEOUT_S = 60
+LOADER_WORKERS = 4
+LOADER_QUEUE_CAP = 2
+NATIVE_EUROC_FRAMES = 96
 FLOW_TOL = 1e-3         # px
 NCC_TOL = 1e-4
 OK_AGREE = 0.99
@@ -2190,6 +2230,391 @@ def _report_scale_out(run: dict, card: str) -> None:
     print(f"scale-out: phase wall {run['wall_s']:.1f} s; {card}")
 
 
+def _track_errors(cfg, seq, imgs, device) -> dict:
+    """FeatureTracker over frames 0 and 1; the tracked points' distance
+    to the renderer's exact correspondence (ground_truth_correspondence)
+    and klt_fb_ncc's launches."""
+    from vins_tpu_torch.frontend.tracker import FeatureTracker
+    from vins_tpu_torch.io.synthetic import ground_truth_correspondence
+
+    tracker = FeatureTracker(cfg, device=device)
+    _reset_counts()
+    out0 = tracker.process(imgs[0])
+    out1 = tracker.process(imgs[1])
+    launches = _read_counts()
+    ids0, v0, p0, ids1, v1, p1 = (x.cpu().numpy() for x in (
+        out0.ids, out0.obs_valid, out0.pts_px, out1.ids, out1.obs_valid,
+        out1.pts_px))
+    common, ia, ib = np.intersect1d(ids0[v0], ids1[v1], return_indices=True)
+    expect = ground_truth_correspondence(seq, cfg, p0[v0][ia], 0, 1)
+    err = np.linalg.norm(p1[v1][ib] - expect, axis=-1)
+    return dict(levels=cfg.frontend.pyramid_levels, common=int(len(common)),
+                median_px=float(np.median(err)) if len(err) else None,
+                near_share=float((err < GEOM_FAR_PX).mean()) if len(err)
+                else 0.0, max_px=float(err.max()) if len(err) else None,
+                launches=launches)
+
+
+def _geometry_part(cfg, device) -> dict:
+    """tests/test_frontend.py's fixture at 4 levels, rendered on the
+    device, gated on that test's bounds; then frames 0-1 of the demo's
+    30 Hz sequence at cfg (3 levels), not gated."""
+    import dataclasses
+
+    import torch
+    from vins_tpu_torch import run_synthetic
+    from vins_tpu_torch.io import synthetic
+
+    on_card = torch.device(device).type == "cuda"
+    cfg4 = dataclasses.replace(cfg, frontend=dataclasses.replace(
+        cfg.frontend, pyramid_levels=4))
+    seq = synthetic.make_synthetic_sequence(
+        cfg4, n_frames=GEOM_FRAMES, n_landmarks=GEOM_LANDMARKS,
+        seed=GEOM_SEED, traj_kwargs=GEOM_TRAJ, device=device)
+    imgs = synthetic.render_sequence_images(seq, cfg4, seed=GEOM_SEED,
+                                            device=device)
+    fixture = _track_errors(cfg4, seq, imgs, device)
+    ok = (fixture["common"] >= GEOM_COMMON_MIN
+          and fixture["median_px"] < GEOM_MEDIAN_MAX
+          and fixture["near_share"] > GEOM_NEAR_SHARE)
+    if not ok:
+        _fail(f"tracking against exact geometry: {fixture} (bounds: "
+              f">= {GEOM_COMMON_MIN} common, median < {GEOM_MEDIAN_MAX} px,"
+              f" > {GEOM_NEAR_SHARE} under {GEOM_FAR_PX} px)")
+    if on_card and fixture["launches"]["klt_fb_ncc"] != 1:
+        _fail(f"geometry: launches {fixture['launches']} for 1 tracked "
+              f"frame")
+    seq30 = synthetic.make_synthetic_sequence(
+        cfg, n_frames=2, n_landmarks=60, seed=run_synthetic.SEED,
+        frame_dt=1.0 / 30.0, traj_kwargs=dict(w=0.35, bob=0.15),
+        imu_per_frame=4, device=device)
+    imgs30 = synthetic.render_sequence_images(seq30, cfg,
+                                              seed=run_synthetic.SEED,
+                                              device=device)
+    return dict(fixture=fixture, demo_30hz=_track_errors(cfg, seq30, imgs30,
+                                                         device))
+
+
+def _png_rgb(path: str):
+    """(width, height, RGB uint8 [H, W, 3]) of a PNG run_synthetic wrote
+    (8-bit RGB, filter 0 rows); fails on anything else."""
+    import struct
+    import zlib
+
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n" or data[12:16] != b"IHDR":
+        _fail(f"{path} is not a PNG")
+    W, H, depth, color = struct.unpack(">IIBB", data[16:26])
+    pos, idat = 8, b""
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        if tag == b"IDAT":
+            idat += data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8)
+    rows = raw.reshape(H, 1 + 3 * W)
+    if (depth, color) != (8, 2) or rows[:, 0].any():
+        _fail(f"{path}: not the writer's 8-bit RGB with filter-0 rows")
+    return W, H, rows[:, 1:].reshape(H, W, 3)
+
+
+def _demo_part(device) -> dict:
+    """run_synthetic.main(--frames 120 --loop) on the device: it must
+    return 0 and initialize, its poses after initialization be finite,
+    both PNGs valid at 640x640 and 640x480 with pixels other than their
+    background, klt_fb_ncc launch once per tracked frame and K3 from the
+    raw frame once per keyframe insert (at least one), no other kernel."""
+    import torch
+    from vins_tpu_torch import run_synthetic
+    from vins_tpu_torch.viz.renderer import TrajectoryRenderer
+
+    on_card = torch.device(device).type == "cuda"
+    runs = []
+    run = run_synthetic.run
+
+    def capture(*args, **kwargs):
+        r = run(*args, **kwargs)
+        runs.append(r)
+        return r
+
+    run_synthetic.run = capture
+    _reset_counts()
+    t0 = time.perf_counter()
+    try:
+        rc = run_synthetic.main(["--frames", str(DEMO_FRAMES), "--loop",
+                                 "--out", DEMO_OUT, "--device", str(device)])
+    finally:
+        run_synthetic.run = run
+    wall = time.perf_counter() - t0
+    launches = _read_counts()
+    if rc != 0 or not runs:
+        _fail(f"the demo returned {rc}")
+    r = runs[0]
+    init_at = run_synthetic.init_frame(r.outs)
+    if init_at is None:
+        _fail("the demo never initialized")
+    post = r.outs[init_at:]
+    est = np.stack([o.p for o in post])
+    quats = np.stack([o.q for o in post])
+    if not (all(o.initialized for o in post) and np.all(np.isfinite(est))
+            and np.all(np.isfinite(quats))):
+        _fail("the demo has an uninitialized or non-finite pose after "
+              "initialization")
+    ate, ate_raw = _ate(est, r.seq.p.cpu().numpy()[init_at:])
+
+    cam = r.system.cfg.camera
+    W, H, traj = _png_rgb(os.path.join(DEMO_OUT, "trajectory.png"))
+    view = TrajectoryRenderer()
+    background = int(np.float32(0.08) * 255)
+    if (W, H) != (view.W, view.H) or not (traj != background).any():
+        _fail(f"trajectory.png is {W}x{H} or holds only the background")
+    W, H, ar = _png_rgb(os.path.join(DEMO_OUT, "ar_overlay.png"))
+    frame = (np.clip(r.imgs[-1].cpu().numpy(), 0, 1) * 255).astype(np.uint8)
+    if (W, H) != (cam.width, cam.height) or not (
+            ar != frame[:, :, None]).any():
+        _fail(f"ar_overlay.png is {W}x{H} or holds only the frame")
+
+    lc = r.system.loop
+    tracked = DEMO_FRAMES - 1       # frame 0 only detects
+    if on_card and (launches["klt_fb_ncc"] != tracked or lc.n_inserts < 1
+                    or launches["brief_raw_words"] != lc.n_inserts
+                    or launches["brief_words"] or launches["klt_pyramid"]
+                    or launches["patch_ncc"] or launches["klt_level"]):
+        _fail(f"demo launches {launches} for {tracked} tracked frames and "
+              f"{lc.n_inserts} keyframe inserts")
+    after = r.frame_s[init_at + 1:]
+    return dict(frames=DEMO_FRAMES, rc=rc, init_at=init_at, ate_rmse_m=ate,
+                ate_raw_rmse_m=ate_raw, wall_s=wall,
+                frames_per_s_after_init=len(after) / sum(after),
+                keyframes_inserted=lc.n_inserts, loop_hits=lc.n_loops,
+                launches=launches)
+
+
+def _sensor_events(t_end=1.0, accel_hz=100.0, gyro_hz=97.0, img_hz=10.0):
+    """tests/test_native_runtime.py's event stream: accel at 100 Hz, gyro
+    at 97 Hz, images at 10 Hz, in time order."""
+    t_a = np.arange(0.0, t_end, 1.0 / accel_hz)
+    t_g = np.arange(0.0005, t_end, 1.0 / gyro_hz)
+    t_i = np.arange(0.105, t_end - 0.05, 1.0 / img_hz)
+    acc = np.stack([np.sin(3 * t_a), np.cos(2 * t_a), 9.8 + 0.1 * t_a], 1)
+    gyr = np.stack([0.1 * t_g, np.cos(t_g), np.sin(t_g)], 1)
+    events = ([("a", t, acc[i]) for i, t in enumerate(t_a)]
+              + [("g", t, gyr[i]) for i, t in enumerate(t_g)]
+              + [("i", t, None) for t in t_i])
+    events.sort(key=lambda e: e[1])
+    return events
+
+
+def _feed(sync, events):
+    out, img_id = [], 0
+    for kind, t, v in events:
+        if kind == "a":
+            sync.push_accel(t, v)
+        elif kind == "g":
+            sync.push_gyro(t, v)
+        else:
+            sync.push_image(t, img_id)
+            img_id += 1
+        r = sync.poll()
+        while r is not None:
+            out.append(r)
+            r = sync.poll()
+    return out
+
+
+def _runtime_part(device) -> dict:
+    """The port's NativeStreamSync (native/runtime.cpp built with g++
+    into vins_tpu_torch/_build/) against its StreamSync, both on the
+    device, on tests/test_native_runtime.py's stream with that test's
+    bounds; every chunk on the device."""
+    import torch
+    from vins_tpu_torch.io.native_runtime import NativeStreamSync, StreamSync
+
+    events = _sensor_events()
+    t0 = time.perf_counter()
+    sync = NativeStreamSync(32, device=device)      # builds and loads
+    open_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native = _feed(sync, events)
+    native_s = time.perf_counter() - t0
+    sync.close()
+    t0 = time.perf_counter()
+    python = _feed(StreamSync(32, device=device), events)
+    python_s = time.perf_counter() - t0
+    dev = torch.device(device)
+    if len(native) != len(python) or len(native) < 7:
+        _fail(f"native runtime: {len(native)} chunks, Python {len(python)}")
+    worst = dict(t=0.0, dt=0.0, acc=0.0, gyr=0.0)
+    for (ia, ta, ca), (ib, tb, cb) in zip(native, python):
+        if ia != ib:
+            _fail(f"native runtime: image id {ia} against {ib}")
+        if any(x.device != dev for x in (*ca, *cb)):
+            _fail(f"native runtime: a chunk is not on {dev}")
+        worst["t"] = max(worst["t"], abs(ta - tb))
+        for k in ("dt", "acc", "gyr"):
+            worst[k] = max(worst[k], float(torch.max(torch.abs(
+                getattr(ca, k) - getattr(cb, k)))))
+    bounds = dict(t=1e-12, dt=1e-6, acc=1e-5, gyr=1e-5)
+    if any(worst[k] > bounds[k] for k in bounds):
+        _fail(f"native runtime differs from StreamSync: {worst}")
+    return dict(chunks=len(native), events=len(events), max_err=worst,
+                open_s=open_s, native_s=native_s, python_s=python_s)
+
+
+def _loader_part(device, root: str) -> dict:
+    """The native prefetcher over every PNG of the ASL tree at `root`
+    (4 workers, queue_cap 2) under a LOADER_TIMEOUT_S watchdog, each frame
+    equal to euroc.load_gray_png's; then run_euroc --native-loader --stream
+    --no-loop over NATIVE_EUROC_FRAMES of it: initialized, finite poses,
+    klt_fb_ncc once per tracked frame and no other kernel. Returns
+    {"skipped": reason} where the host has no zlib headers."""
+    import threading
+
+    import torch
+    from vins_tpu_torch import run_euroc
+    from vins_tpu_torch.io import euroc, native_build
+    from vins_tpu_torch.io.native_loader import PrefetchingImageLoader
+
+    on_card = torch.device(device).type == "cuda"
+    try:
+        native_build.build("vinsloader")
+    except native_build.BuildError as e:
+        if "zlib.h" not in str(e):
+            raise
+        return dict(skipped="no zlib headers on this host: the native "
+                            "loader cannot be built")
+    data = euroc.load_euroc(root)
+    paths = data.cam_files
+    first = euroc.load_gray_png(paths[0])
+    H, W = first.shape
+    t0 = time.perf_counter()
+    ref = [first] + [euroc.load_gray_png(p) for p in paths[1:]]
+    python_s = time.perf_counter() - t0
+
+    got, failed = [], []
+
+    def drain():
+        try:
+            loader = PrefetchingImageLoader(paths, W, H,
+                                            n_workers=LOADER_WORKERS,
+                                            queue_cap=LOADER_QUEUE_CAP)
+            got.extend(loader)
+            loader.close()
+        except Exception as e:          # reported below, by the main thread
+            failed.append(repr(e))
+
+    t0 = time.perf_counter()
+    th = threading.Thread(target=drain, daemon=True)
+    th.start()
+    th.join(LOADER_TIMEOUT_S)
+    native_s = time.perf_counter() - t0
+    if th.is_alive():
+        _fail(f"the native prefetcher did not finish {len(paths)} frames "
+              f"in {LOADER_TIMEOUT_S} s ({len(got)} delivered)")
+    if failed or len(got) != len(ref):
+        _fail(f"native prefetcher: {len(got)} of {len(ref)} frames {failed}")
+    bad = [i for i, (a, b) in enumerate(zip(got, ref))
+           if not np.array_equal(a, b)]
+    if bad:
+        _fail(f"native prefetcher: frames {bad[:10]} differ from "
+              f"load_gray_png's")
+
+    out = os.path.join("smoke_out", "euroc_native_out")
+    _reset_counts()
+    t0 = time.perf_counter()
+    result = run_euroc.main(["--root", root, "--native-loader", "--stream",
+                             "--no-loop", "--frames",
+                             str(NATIVE_EUROC_FRAMES), "--out", out,
+                             "--device", str(device)])
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_counts()
+    with np.load(os.path.join(out, "run.npz")) as z:
+        init = z["initialized"]
+        p, q = z["p"], z["q"]
+    if result["frames"] != NATIVE_EUROC_FRAMES - 1 or not init.any():
+        _fail(f"run_euroc --native-loader: {result}, initialized "
+              f"{bool(init.any())}")
+    init_at = int(np.argmax(init))
+    if not (init[init_at:].all() and np.all(np.isfinite(p[init_at:]))
+            and np.all(np.isfinite(q[init_at:]))):
+        _fail("run_euroc --native-loader: a non-finite or uninitialized "
+              "pose after initialization")
+    tracked = result["frames"] - 1
+    if on_card and (launches["klt_fb_ncc"] != tracked
+                    or any(v for k, v in launches.items()
+                           if k != "klt_fb_ncc")):
+        _fail(f"run_euroc --native-loader launches {launches} for "
+              f"{tracked} tracked frames")
+    return dict(frames=len(paths), width=W, height=H, python_s=python_s,
+                native_s=native_s, workers=LOADER_WORKERS,
+                queue_cap=LOADER_QUEUE_CAP,
+                euroc=dict(result=result, init_at=init_at, wall_s=wall,
+                           launches=launches))
+
+
+def last_slice_phase(cfg, device) -> dict:
+    """Phase 10: tracking against exact geometry, the demo, the native
+    sensor runtime and the native loader with run_euroc --native-loader
+    (on phase 8's ASL tree). Runs on any device (launch counts only on
+    the card)."""
+    t0 = time.perf_counter()
+    parts = {}
+    for name, fn in (("geometry", lambda: _geometry_part(cfg, device)),
+                     ("demo", lambda: _demo_part(device)),
+                     ("runtime", lambda: _runtime_part(device)),
+                     ("loader", lambda: _loader_part(
+                         device, os.path.join("smoke_out",
+                                              "euroc_fixture")))):
+        t = time.perf_counter()
+        parts[name] = fn()
+        parts[name]["part_s"] = time.perf_counter() - t
+    parts["wall_s"] = time.perf_counter() - t0
+    return parts
+
+
+def _report_last_slice(run: dict, card: str) -> None:
+    g = run["geometry"]
+    for tag, e in (("fixture (test_frontend, 4 levels, gated)",
+                    g["fixture"]),
+                   ("demo 30 Hz sequence (3 levels, not gated)",
+                    g["demo_30hz"])):
+        print(f"last-slice geometry, {tag}: frames 0->1, {e['common']} "
+              f"common tracks, median error {e['median_px']:.4f} px, "
+              f"{e['near_share']:.4f} under {GEOM_FAR_PX} px, max "
+              f"{e['max_px']:.4f} px; {card}")
+    d = run["demo"]
+    print(f"last-slice demo: run_synthetic --frames {d['frames']} --loop "
+          f"returned {d['rc']}, init at frame {d['init_at']}, ATE "
+          f"{d['ate_rmse_m']:.4f} m aligned (not gated), "
+          f"{d['frames_per_s_after_init']:.2f} frames/s after init, "
+          f"{d['keyframes_inserted']} keyframe inserts, wall "
+          f"{d['wall_s']:.1f} s; launches {d['launches']}; {card}")
+    rt = run["runtime"]
+    print(f"last-slice runtime: {rt['chunks']} chunks from {rt['events']} "
+          f"events, native {rt['native_s']:.4f} s (build and load "
+          f"{rt['open_s']:.3f} s before it), Python {rt['python_s']:.4f} s,"
+          f" max differences {rt['max_err']}; {card}")
+    ld = run["loader"]
+    if "skipped" in ld:
+        print(f"last-slice loader: not run: {ld['skipped']}")
+    else:
+        eu = ld["euroc"]
+        print(f"last-slice loader: {ld['frames']} PNGs "
+              f"{ld['width']}x{ld['height']}, Python decoder "
+              f"{ld['python_s']:.3f} s, native prefetcher "
+              f"({ld['workers']} workers, queue {ld['queue_cap']}) "
+              f"{ld['native_s']:.3f} s, frames equal; run_euroc "
+              f"--native-loader: {eu['result']['frames']} frames, init at "
+              f"frame {eu['init_at']}, {eu['wall_s']:.1f} s, launches "
+              f"{eu['launches']}; {card}")
+    print(f"last-slice: phase wall {run['wall_s']:.1f} s (geometry "
+          f"{g['part_s']:.1f}, demo {d['part_s']:.1f}, runtime "
+          f"{rt['part_s']:.1f}, loader {ld['part_s']:.1f}); {card}")
+
+
 def _loop_on_child(path: str, device: str) -> None:
     """Phase 4 in a child process: pickles ("ok", slice_phase's result) or
     ("fail", what stopped it) to path."""
@@ -2273,6 +2698,8 @@ def main() -> None:
         _report_euroc(run_eu, card)
         run_so = scale_out_phase(cfg, device, card)
         _report_scale_out(run_so, card)
+        run_last = last_slice_phase(cfg, device)
+        _report_last_slice(run_last, card)
         run_off = slice_phase(cfg, device, False, TRAJ_OFF, N_FRAMES_OFF,
                               max_init_at=INIT_AT_MAX_OFF)
         _report_run("loop-off", run_off, card)
@@ -2296,13 +2723,19 @@ def main() -> None:
         k["launches"] = run_loop["launches"][k["name"]]
         k["launches_loop_off"] = run_off["launches"][k["name"]]
         k["launches_interactive"] = run_int["launches"][k["name"]]
+        k["launches_demo"] = run_last["demo"]["launches"][k["name"]]
+    native_eu = run_last["loader"].get("euroc")
     for k in kernels_euroc:
         k["launches"] = run_eu["launches"][k["name"].split("@")[0]]
         k["launches_path"] = "euroc"
+        k["launches_native_loader"] = (
+            native_eu["launches"][k["name"].split("@")[0]]
+            if native_eu else None)
     kernels = kernels + kernels_euroc
     report["loop"], report["loop_off"] = run_loop, run_off
     report["realtime"], report["euroc"] = run_rt, run_eu
     report["scale_out"] = run_so
+    report["last_slice"] = run_last
     report["interactive"] = run_int
     report["kernels"] = kernels
     os.makedirs("smoke_out", exist_ok=True)

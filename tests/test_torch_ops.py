@@ -42,7 +42,9 @@ def _t(x, dtype=None):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Importing the port (its main-path, loop-closure, dataset IO,
-    global BA and EuRoC entry modules) imports no jax, no vins_tpu module and no triton, builds no kernel,
+    global BA, EuRoC and demo entry modules, the renderer and the native
+    IO wrappers) imports no jax, no vins_tpu module and no triton, builds
+    no kernel and no host library,
     and loading the shipped vocabulary opens no file of the JAX
     package."""
     code = (
@@ -59,12 +61,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "vins_tpu_torch.io.imu_sync, vins_tpu_torch.io.stream_sync, "
         "vins_tpu_torch.io.replay, vins_tpu_torch.io.evaluate, "
         "vins_tpu_torch.parallel.dist_ba, vins_tpu_torch.parallel.harvest, "
-        "vins_tpu_torch.run_euroc\n"
+        "vins_tpu_torch.run_euroc, vins_tpu_torch.run_synthetic, "
+        "vins_tpu_torch.viz\n"
+        "from vins_tpu_torch.io import native_loader, native_runtime\n"
         "assert vins_tpu_torch.loop.default_vocabulary('cpu') is not None\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'vins_tpu', 'triton'))\n"
         "assert not bad, bad\n"
         "assert native._lib is None and not native.build_info\n"
+        "assert native_loader._lib is None and native_runtime._lib is None\n"
         "ref = os.sep + 'vins_tpu' + os.sep\n"
         "assert not [p for p in opened if ref in p], opened\n"
         "print('clean')\n")

@@ -40,6 +40,16 @@ def local_jacobian(local: Callable[[torch.Tensor], torch.Tensor], B: int,
 # ---------------------------------------------------------------------------
 
 
+def imu_residual_whitened(pre: pre_mod.Preintegration, p_i, q_i, v_i, ba_i,
+                          bg_i, p_j, q_j, v_j, ba_j, bg_j,
+                          gravity: torch.Tensor) -> torch.Tensor:
+    """Whitened 15-dim IMU residual S r of one edge (or a batch of edges
+    over leading dimensions)."""
+    r = pre_mod.evaluate(pre, p_i, q_i, v_i, ba_i, bg_i,
+                         p_j, q_j, v_j, ba_j, bg_j, gravity)
+    return torch.einsum("...ij,...j->...i", pre_mod.sqrt_information(pre), r)
+
+
 def imu_factor_local(pre: pre_mod.Preintegration, p_i, q_i, v_i, ba_i,
                      bg_i, p_j, q_j, v_j, ba_j, bg_j, gravity,
                      S: torch.Tensor):

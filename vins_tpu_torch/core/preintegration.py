@@ -187,6 +187,46 @@ def propagate(chunk: ImuChunk, linearized_ba: torch.Tensor,
                           P_pref[..., -1, :, :], sum_dt, ba, bg)
 
 
+def propagate_sequential(chunk: ImuChunk, linearized_ba: torch.Tensor,
+                         linearized_bg: torch.Tensor,
+                         imu: ImuConfig) -> Preintegration:
+    """The reference-order sequential integration (integration_base.h:
+    141-169): one midpoint step per sample, in a Python loop over the
+    sample axis. Kept as the numeric reference for `propagate`, as in the
+    JAX module."""
+    ba, bg = linearized_ba, linearized_bg
+    dtype, dev = chunk.acc.dtype, chunk.acc.device
+    batch = chunk.dt.shape[:-1]
+    Qn = noise_covariance(imu, dtype, dev)
+    dp = torch.zeros(batch + (3,), dtype=dtype, device=dev)
+    dv = torch.zeros_like(dp)
+    dq = lie.quat_identity(dtype, dev).expand(batch + (4,))
+    J = torch.eye(15, dtype=dtype, device=dev).expand(batch + (15, 15))
+    P = torch.zeros(batch + (15, 15), dtype=dtype, device=dev)
+    sum_dt = torch.zeros(batch, dtype=dtype, device=dev)
+    acc0, gyr0 = chunk.acc[..., 0, :], chunk.gyr[..., 0, :]
+    # Row 0 only seeds acc0/gyr0; rows 1..N-1 integrate.
+    for s in range(1, chunk.dt.shape[-1]):
+        dt, acc1, gyr1 = chunk.dt[..., s], chunk.acc[..., s, :], \
+            chunk.gyr[..., s, :]
+        dtk = dt[..., None]
+        un_acc_0 = lie.quat_rotate(dq, acc0 - ba)
+        un_gyr = 0.5 * (gyr0 + gyr1) - bg
+        dq_new = lie.quat_normalize(lie.quat_mul(
+            dq, lie.delta_q(un_gyr * dtk)))
+        un_acc = 0.5 * (un_acc_0 + lie.quat_rotate(dq_new, acc1 - ba))
+        dp = dp + dv * dtk + 0.5 * un_acc * dtk * dtk
+        dv = dv + un_acc * dtk
+        F, V = _transition(lie.quat_to_rotmat(dq),
+                           lie.quat_to_rotmat(dq_new), acc0 - ba, acc1 - ba,
+                           un_gyr, dt)
+        J = F @ J
+        P = F @ P @ F.transpose(-1, -2) + V @ Qn @ V.transpose(-1, -2)
+        sum_dt = sum_dt + dt
+        dq, acc0, gyr0 = dq_new, acc1, gyr1
+    return Preintegration(dp, dq, dv, J, P, sum_dt, ba, bg)
+
+
 def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.einsum("...ij,...j->...i", M, v)
 

@@ -1,7 +1,7 @@
 """Live-sensor entry: accel, gyro and image stamps pushed as they arrive,
 one IMU chunk polled per image (port of the pure-Python StreamSync of
-vins_tpu/io/native_runtime.py; its C++ runtime behind ctypes is not
-ported).
+vins_tpu/io/native_runtime.py; the C++ runtime behind ctypes is
+io/native_runtime.NativeStreamSync).
 
 Accel is interpolated to each gyro stamp as it becomes bracketed; an
 image is ready once a fused sample at or after its stamp exists, and

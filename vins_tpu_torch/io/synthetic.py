@@ -3,9 +3,11 @@ the closed-form circle trajectory, one ground-truth window
 (make_synthetic_window), the per-frame sequence generator and bench.py's
 bootstrapped backend sequence (build_backend_inputs), the ray-cast
 textured-cylinder renderer, a synthetic global-BA problem
-(make_ba_problem) and a ground-truth initializer for
-pipeline.VinsSystem's test seam (`initializer=`), which the system
-otherwise fills by visual-inertial initialization.
+(make_ba_problem), the renderer's exact pixel correspondence between two
+frames (ground_truth_correspondence, for checking tracking) and a
+ground-truth initializer for pipeline.VinsSystem's test seam
+(`initializer=`), which the system otherwise fills by visual-inertial
+initialization.
 
 The window, the sequence, the BA problem and the texture come from numpy
 with a seed, the same draws in the same order as in the JAX module; the
@@ -344,6 +346,49 @@ def render_sequence_images(seq: SyntheticSequence, cfg: VinsConfig,
     return render_camera_frames(p_cam, R_wc, cfg, seed, wall_radius,
                                 floor_z, ceil_z, noise_sigma,
                                 distorted=distorted, device=device)
+
+
+def ground_truth_correspondence(seq: SyntheticSequence, cfg: VinsConfig,
+                                pts_px, frame_a: int, frame_b: int,
+                                wall_radius: float = 8.0,
+                                floor_z: float = -2.0,
+                                ceil_z: float = 2.0) -> np.ndarray:
+    """Exact correspondence of frame-a pixels pts_px [K, 2] (numpy or a
+    tensor) in frame b, from the renderer's geometry: each pixel's ray is
+    cast against the cylinder wall, floor and ceiling, and the hit is
+    projected into frame b. Host numpy, as in the JAX module; returns
+    numpy [K, 2] pixel coordinates."""
+    fx, fy, cx, cy = (cfg.camera.fx, cfg.camera.fy,
+                      cfg.camera.cx, cfg.camera.cy)
+    qic, tic, q, p, pts_px = device_mod.host_args(
+        seq.ext.qic, seq.ext.tic, seq.q, seq.p, pts_px)
+    pts_px = np.asarray(pts_px)
+    R_ic = lie.np_quat_to_rotmat(qic)
+    Rwb = lie.np_quat_to_rotmat(q)
+
+    R_wc = Rwb[frame_a] @ R_ic
+    o = p[frame_a] + Rwb[frame_a] @ tic
+    d_c = np.stack([(pts_px[:, 0] - cx) / fx, (pts_px[:, 1] - cy) / fy,
+                    np.ones(len(pts_px), np.float32)], -1)
+    d = d_c @ R_wc.T
+    a = d[:, 0] ** 2 + d[:, 1] ** 2
+    b = 2 * (o[0] * d[:, 0] + o[1] * d[:, 1])
+    c = o[0] ** 2 + o[1] ** 2 - wall_radius ** 2
+    t_cyl = (-b + np.sqrt(np.maximum(b * b - 4 * a * c, 0))) / np.maximum(
+        2 * a, 1e-9)
+    dz = d[:, 2]
+    t_flo = np.where(dz < -1e-6, (floor_z - o[2]) / np.where(
+        np.abs(dz) < 1e-6, -1e-6, dz), np.inf)
+    t_cei = np.where(dz > 1e-6, (ceil_z - o[2]) / np.where(
+        np.abs(dz) < 1e-6, 1e-6, dz), np.inf)
+    t_hit = np.minimum(np.minimum(t_cyl, t_flo), t_cei)
+    X = o + d * t_hit[:, None]
+
+    R_wc2 = Rwb[frame_b] @ R_ic
+    o2 = p[frame_b] + Rwb[frame_b] @ tic
+    pc = (X - o2) @ R_wc2
+    z = np.maximum(pc[:, 2], 1e-6)
+    return np.stack([pc[:, 0] / z * fx + cx, pc[:, 1] / z * fy + cy], -1)
 
 
 def make_ba_problem(n_poses: int = 16, n_landmarks: int = 512, seed: int = 0,

@@ -76,6 +76,18 @@ def select_corners_grid(response: torch.Tensor, occupied: torch.Tensor,
                       valid=valid)
 
 
+def occupancy_mask(shape: Tuple[int, int], pts: torch.Tensor,
+                   valid: torch.Tensor, radius: int) -> torch.Tensor:
+    """[H, W] bool: True within `radius` px of a valid feature (the
+    reference's setMask disc mask, dense over [H, W] x [M]; the tracker
+    uses the cell-level occupancy_cells)."""
+    H, W = shape
+    yy = torch.arange(H, dtype=pts.dtype, device=pts.device)[:, None, None]
+    xx = torch.arange(W, dtype=pts.dtype, device=pts.device)[None, :, None]
+    d2 = (xx - pts[None, None, :, 0]) ** 2 + (yy - pts[None, None, :, 1]) ** 2
+    return torch.any((d2 < radius * radius) & valid[None, None, :], dim=-1)
+
+
 def occupancy_cells(shape: Tuple[int, int], pts: torch.Tensor,
                     valid: torch.Tensor, cell: int) -> torch.Tensor:
     """[H//cell, W//cell] bool: True where a cell center lies within

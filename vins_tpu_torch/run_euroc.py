@@ -2,7 +2,8 @@
 port's counterpart of examples/run_euroc.py:
 
     python -m vins_tpu_torch.run_euroc --root /data/euroc/MH_01_easy \
-        [--frames 500] [--stream] [--global-ba] [--out DIR] [--device cpu]
+        [--frames 500] [--stream] [--global-ba] [--native-loader] \
+        [--out DIR] [--device cpu]
 
 Frames go through VinsSystem.process_frame until the system has
 initialized; with --stream the rest go through process_stream (blocks of
@@ -10,7 +11,10 @@ initialized; with --stream the rest go through process_stream (blocks of
 against the sequence's ground truth when it has one, and the keyframe
 trajectory before and after the optional end-of-run global BA. Writes
 run.npz and keyframe_trajectory.npz under --out and prints the result
-dict as one JSON line. --device defaults to the first CUDA card.
+dict as one JSON line. --device defaults to the first CUDA card. With
+--native-loader the PNGs are decoded ahead by the native prefetcher
+(io/native_loader.NativeEurocLoader, built with g++ at first use) instead
+of in Python.
 
 Launched with more than one rank (WORLD_SIZE > 1, e.g. `torchrun
 --nproc_per_node=N -m vins_tpu_torch.run_euroc ...` on N cards), rank 0
@@ -62,6 +66,9 @@ def main(argv=None):
                     help="end-of-run global bundle adjustment over the "
                          "keyframe map (LoopCloser.global_ba; sharded over "
                          "the ranks when WORLD_SIZE > 1)")
+    ap.add_argument("--native-loader", action="store_true",
+                    help="decode the PNGs ahead on native threads "
+                         "(io/native_loader)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the first CUDA card)")
     ap.add_argument("--dist-timeout", type=float, default=7200.0,
@@ -90,9 +97,14 @@ def main(argv=None):
     n = len(data.cam_ts) - args.start if args.frames == 0 else args.frames
     print(f"{len(data.cam_ts)} frames, {len(data.imu_ts)} IMU samples; "
           f"running {n} from {args.start} on {dev}")
-    frames = euroc.align_measurements(data, cfg, start=args.start, count=n,
-                                      device=dev)
-    frames = ((f, euroc.load_gray_png(f.image_path)) for f in frames)
+    if args.native_loader:
+        from .io.native_loader import NativeEurocLoader
+        frames = NativeEurocLoader(data, cfg, start=args.start, count=n,
+                                   device=dev)
+    else:
+        frames = euroc.align_measurements(data, cfg, start=args.start,
+                                          count=n, device=dev)
+        frames = ((f, euroc.load_gray_png(f.image_path)) for f in frames)
 
     sys_ = VinsSystem(cfg, use_loop=not args.no_loop, device=dev)
     rec = Recorder()
@@ -139,6 +151,8 @@ def main(argv=None):
             out = sys_.process_frame(torch.as_tensor(img, device=dev),
                                      f.chunk, t=f.t)
             publish(out, f.gt_p)
+    if args.native_loader:
+        frames.close()
     flush_block()
     if sys_.loop is not None:
         sys_.drain_loop_work()
