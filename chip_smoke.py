@@ -31,8 +31,15 @@ Phases (any failure exits non-zero, and no result line is printed):
                 the raw frame (N = 512 and 128) again at euroc_config()'s
                 shape, a 752x480 frame pair rendered through the EuRoC
                 camera's distortion (row pitches of 3008, 1504 and 752
-                bytes), with the same tolerances;
-  4. loop     — (in a spawned child process, alongside phases 5-10 in
+                bytes), with the same tolerances; then the runtime-window
+                kernels (domain_kernel_phase): klt_fb_ncc, K1, K4 and K2
+                at windows 15 (5 levels), 31 (2) and 63 (1) on the same
+                640x480 frames and slots (flow within 1e-3 px; K2's NCC,
+                and klt_fb_ncc's at its own tracked points, within 1e-5),
+                and K3's patch entry at windows 11 and 49 on 512
+                keypoints (bit for bit);
+  4. loop     — (in a spawned child process, with phase 11 after it,
+                alongside phases 5-10 in
                 this one, which runs 8, 9 and 10 first, then 5-7, so that the
                 script ends well inside its time on a slow host; each
                 process counts its own launches and syncs, and the
@@ -112,7 +119,18 @@ Phases (any failure exits non-zero, and no result line is printed):
                 watchdog, each frame equal to load_gray_png's, then
                 run_euroc --native-loader --stream --no-loop over 96 of
                 them (initialized, finite, klt_fb_ncc once per tracked
-                frame). Prints each part's numbers and the phase's wall.
+                frame). Prints each part's numbers and the phase's wall;
+                the fixture's frames again at window 15 with 5 levels:
+                the card's klt_fb_ncc launch held against its plain
+                version on the tracker's inputs, the median distance to
+                the exact correspondence printed;
+ 11. domain   — (in phase 4's child, after it) VinsSystem(cfg,
+                use_loop=False) with only the frontend changed to
+                klt_window=15, pyramid_levels=5, over 96 frames of the
+                w = 0.35 circle: it must initialize, give finite poses
+                and launch the runtime-window klt_fb_ncc once per
+                tracked frame; its init frame, frames/s and aligned ATE
+                are printed, the ATE not gated.
 Every run prints its initialization attempts (frame, status, wall time,
 synchronizing CUDA calls); the interactive run prints the per-frame wall
 time of the motion-only solve, a backend frame and a keyframe insert.
@@ -257,6 +275,17 @@ LOADER_QUEUE_CAP = 2
 NATIVE_EUROC_FRAMES = 96
 FLOW_TOL = 1e-3         # px
 NCC_TOL = 1e-4
+# The runtime-window kernels: (window, levels) points the default configs
+# do not reach, on 640x480 frames with 128 slots (NCC within
+# NCC_TOL_DOMAIN), and K3's patch entry at PATCH_WINS on N_PATCHES
+# keypoints (bit for bit). The system runs at DOMAIN_PATH over
+# N_FRAMES_DOMAIN frames of the w = 0.35 circle, loop off.
+DOMAIN_POINTS = ((15, 5), (31, 2), (63, 1))
+DOMAIN_PATH = (15, 5)
+NCC_TOL_DOMAIN = 1e-5
+PATCH_WINS = (11, 49)
+N_PATCHES = 512
+N_FRAMES_DOMAIN = 96
 OK_AGREE = 0.99
 FB_THRESH = 0.3         # ops/klt.track_pyramid_fb's round-trip bound, px
 
@@ -264,7 +293,7 @@ FB_THRESH = 0.3         # ops/klt.track_pyramid_fb's round-trip bound, px
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOP_S = 67e12
 
-# Operation counts of the kernels, per 21x21 window pixel: a bilinear tap
+# Operation counts of the kernels, per window pixel: a bilinear tap
 # is 6 multiplies and 3 adds; K1/K4 read three taps per template pixel and
 # form the 2x2 structure tensor (3 multiply-adds), then per LK iteration
 # read one tap, subtract, and accumulate the two residual products and
@@ -542,15 +571,25 @@ def brief_inputs(raw, n: int, device):
     return blurred, pts.contiguous(), valid.contiguous()
 
 
-def _check_fb(fb_args, tag: str) -> dict:
+def _check_fb(fb_args, tag: str, ncc_tol: float = NCC_TOL) -> dict:
     """klt_fb_ncc against its plain version on the same inputs: points
     and NCC to FLOW_TOL and NCC_TOL, round trips to 2 FLOW_TOL, the
-    status on OK_AGREE of the slots (fails otherwise)."""
+    status on OK_AGREE of the slots; and the kernel's NCC against K2's
+    plain version at the kernel's own tracked points to ncc_tol (the
+    plain version's NCC is taken at its own points, which may lie FLOW_TOL
+    away). Fails otherwise."""
     import torch
     from vins_tpu_torch.ops import klt_cuda
+    pyr0, _, pyr1, _, pts = fb_args[:5]
     fb_k = klt_cuda.track_fb(*fb_args)
     fb_p = klt_cuda.track_fb_plain(*fb_args)
+    ncc_q = klt_cuda.patch_ncc_plain(pyr0[0], pyr1[0], pts, fb_k[0],
+                                     fb_args[6])
     torch.cuda.synchronize()
+    ncc_q_err = float((fb_k[3] - ncc_q).abs().max())
+    if not (np.isfinite(ncc_q_err) and ncc_q_err <= ncc_tol):
+        _fail(f"{tag} NCC differs from K2's plain version at the kernel's "
+              f"points by {ncc_q_err}")
     agree = float((fb_k[1] == fb_p[1]).float().mean())
     kept = fb_k[1] & fb_p[1]
     pts_err = (float((fb_k[0] - fb_p[0])[kept].abs().max())
@@ -571,7 +610,8 @@ def _check_fb(fb_args, tag: str) -> dict:
     if agree < OK_AGREE:
         _fail(f"{tag} status agrees on only {agree:.3f} of slots")
     return dict(out=fb_k, agree=agree, pts_err=pts_err, rt_err=rt_err,
-                ncc_err=ncc_err, kept=int(fb_k[1].sum()))
+                ncc_err=ncc_err, ncc_at_points_err=ncc_q_err,
+                kept=int(fb_k[1].sum()))
 
 
 def _fb_bound(fb_args) -> dict:
@@ -696,45 +736,56 @@ def _entry(name, source, replaces, err, t, plain_ms, bound, **extra):
                 **extra)
 
 
-def kernel_phase(cfg, device) -> list:
+def _k1_k4_k2(pyr0, g0, pyr1, g1, pts, valid, win: int, iters: int,
+              eps: float, tag: str, ncc_tol: float = NCC_TOL,
+              converged_only: bool = False) -> dict:
+    """K1, K4 and K2 against their plain versions on one frame pair (fails
+    on a disagreement), with their device, call and plain times and
+    bounds. K1 runs forward, then backward from the forward result and its
+    post-filtered status, seeded with the negated forward flow, as
+    track_pyramid_fb ran them before the fused kernel; K4 is level 0 with
+    half the forward flow as its guess; K2 scores the forward result.
+    K1's flow is held to FLOW_TOL on the slots both sides keep; with
+    converged_only, on those of them whose plain pass stopped early at
+    level 0 (a slot that runs all `iters` updates at every level has not
+    converged, and its last position carries the rounding of each
+    update), the largest difference over all kept slots reported as
+    flow_err_all."""
     import torch
-    from vins_tpu_torch.ops import brief, brief_cuda, image, klt, klt_cuda
-
-    fe = cfg.frontend
-    win, iters, eps = fe.klt_window, fe.klt_iters, fe.klt_eps
-    pyr0, g0, pyr1, g1, pts, valid, raw = frame_pair(cfg, device)
+    from vins_tpu_torch.ops import klt_cuda
     M = pts.shape[0]
     f4 = 4.0
-
-    # K1's forward pass, then the backward pass from the forward result
-    # and its post-filtered status, seeded with the negated forward flow,
-    # as track_pyramid_fb ran them before the fused kernel.
     p_k, ok_k, e_k = klt_cuda.track_pyramid(pyr0, g0, pyr1, pts, valid,
                                             win, iters, eps)
-    iters_k1 = []
+    iters_k1, iters_bwd = [], []
     p_p, ok_p, e_p = klt_cuda.track_pyramid_plain(
         pyr0, g0, pyr1, pts, valid, win, iters, eps, iters_run=iters_k1)
     st_k = klt_cuda.post_filter(p_k, ok_k, e_k, valid, pyr1[0].shape)
     bwd = (pyr1, g1, pyr0, p_k, st_k, win, iters, eps, pts - p_k)
     b_k = klt_cuda.track_pyramid(*bwd)
-    b_p = klt_cuda.track_pyramid_plain(*bwd)
+    b_p = klt_cuda.track_pyramid_plain(*bwd, iters_run=iters_bwd)
     torch.cuda.synchronize()
     agree = torch.cat([ok_k == ok_p, b_k[1] == b_p[1]])
-    flow_err = err_err = 0.0
-    for (pk, okk, ek), (pp, okp, ep) in (((p_k, ok_k, e_k), (p_p, ok_p, e_p)),
-                                         (b_k, b_p)):
+    flow_err = flow_err_all = err_err = 0.0
+    for (pk, okk, ek), (pp, okp, ep), run in (
+            ((p_k, ok_k, e_k), (p_p, ok_p, e_p), iters_k1),
+            (b_k, b_p, iters_bwd)):
         both = okk & okp
         if both.any():
-            flow_err = max(flow_err, float((pk - pp)[both].abs().max()))
+            flow_err_all = max(flow_err_all,
+                               float((pk - pp)[both].abs().max()))
             err_err = max(err_err, float((ek - ep)[both].abs().max()))
+        held = both & (run[-1] < iters) if converged_only else both
+        if held.any():
+            flow_err = max(flow_err, float((pk - pp)[held].abs().max()))
     agree_frac = float(agree.float().mean())
     if agree_frac < 1.0:
-        print(f"K1: ok differs on slots "
+        print(f"K1{tag}: ok differs on slots "
               f"{torch.nonzero(~agree).flatten().tolist()}")
-    if flow_err > FLOW_TOL:
-        _fail(f"K1 flow differs from its plain version by {flow_err} px")
+    if not np.isfinite(flow_err) or flow_err > FLOW_TOL:
+        _fail(f"K1{tag} flow differs from its plain version by {flow_err} px")
     if agree_frac < OK_AGREE:
-        _fail(f"K1 ok agrees on only {agree_frac:.3f} of slots")
+        _fail(f"K1{tag} ok agrees on only {agree_frac:.3f} of slots")
     t_k1 = _timed(lambda: klt_cuda.track_pyramid(
         pyr0, g0, pyr1, pts, valid, win, iters, eps), "klt_pyramid_kernel")
     ms_p1 = _call_ms(lambda: klt_cuda.track_pyramid_plain(
@@ -760,12 +811,12 @@ def kernel_phase(cfg, device) -> list:
                                                    iters_run=iters_k4)
     torch.cuda.synchronize()
     if not bool(torch.equal(ok4_k, ok4_p)):
-        _fail(f"K4 ok differs on slots "
+        _fail(f"K4{tag} ok differs on slots "
               f"{torch.nonzero(ok4_k != ok4_p).flatten().tolist()}")
     both = ok4_k & ok4_p
     k4_err = float((f4_k - f4_p)[both].abs().max()) if both.any() else 0.0
     if not np.isfinite(k4_err) or k4_err > FLOW_TOL:
-        _fail(f"K4 flow differs from its plain version by {k4_err} px")
+        _fail(f"K4{tag} flow differs from its plain version by {k4_err} px")
     t_k4 = _timed(lambda: klt_cuda.track_level(*lvl_args),
                   "klt_pyramid_kernel")
     ms_p4 = _call_ms(lambda: klt_cuda.track_level_plain(*lvl_args), reps=5)
@@ -779,8 +830,8 @@ def kernel_phase(cfg, device) -> list:
     n_p = klt_cuda.patch_ncc_plain(pyr0[0], pyr1[0], pts, p_k, win)
     torch.cuda.synchronize()
     ncc_err = float((n_k - n_p).abs().max())
-    if not np.isfinite(ncc_err) or ncc_err > NCC_TOL:
-        _fail(f"K2 differs from its plain version by {ncc_err}")
+    if not np.isfinite(ncc_err) or ncc_err > ncc_tol:
+        _fail(f"K2{tag} differs from its plain version by {ncc_err}")
     t_k2 = _timed(lambda: klt_cuda.patch_ncc(pyr0[0], pyr1[0], pts, p_k,
                                              win), "patch_ncc_kernel")
     ms_p2 = _call_ms(lambda: klt_cuda.patch_ncc_plain(pyr0[0], pyr1[0], pts,
@@ -789,6 +840,29 @@ def kernel_phase(cfg, device) -> list:
     k2_px = (_window_pixels(pyr0[0], pts, win)
              + _window_pixels(pyr1[0], p_k, win))
     b_k2 = _bound(k2_px * f4 + 2 * M * 8 + M * 4, M * win * win * NCC_OPS)
+    return dict(p_k=p_k, ok_k=ok_k, bwd=bwd, n_live=n_live,
+                flow_err=flow_err, flow_err_all=flow_err_all,
+                err_err=err_err, agree=agree_frac,
+                t_k1=t_k1, ms_p1=ms_p1, b_k1=b_k1, k4_err=k4_err, t_k4=t_k4,
+                ms_p4=ms_p4, b_k4=b_k4, ncc_err=ncc_err, t_k2=t_k2,
+                ms_p2=ms_p2, b_k2=b_k2)
+
+
+def kernel_phase(cfg, device) -> list:
+    import torch
+    from vins_tpu_torch.ops import brief, brief_cuda, image, klt, klt_cuda
+
+    fe = cfg.frontend
+    win, iters, eps = fe.klt_window, fe.klt_iters, fe.klt_eps
+    pyr0, g0, pyr1, g1, pts, valid, raw = frame_pair(cfg, device)
+    f4 = 4.0
+
+    k = _k1_k4_k2(pyr0, g0, pyr1, g1, pts, valid, win, iters, eps, "")
+    p_k, ok_k, bwd, n_live = k["p_k"], k["ok_k"], k["bwd"], k["n_live"]
+    flow_err, err_err, agree_frac = k["flow_err"], k["err_err"], k["agree"]
+    t_k1, ms_p1, b_k1 = k["t_k1"], k["ms_p1"], k["b_k1"]
+    k4_err, t_k4, ms_p4, b_k4 = k["k4_err"], k["t_k4"], k["ms_p4"], k["b_k4"]
+    ncc_err, t_k2, ms_p2, b_k2 = k["ncc_err"], k["t_k2"], k["ms_p2"], k["b_k2"]
 
     # The fused kernel against its plain version (the composition
     # track_pyramid_fb ran before), then timed in turns against the three
@@ -1006,6 +1080,104 @@ def euroc_kernel_phase(cfg, device) -> list:
     ]
 
 
+def _with_window(cfg, win: int, levels: int):
+    """cfg with only the frontend's LK window and pyramid depth changed."""
+    import dataclasses
+    return dataclasses.replace(cfg, frontend=dataclasses.replace(
+        cfg.frontend, klt_window=win, pyramid_levels=levels))
+
+
+def domain_kernel_phase(cfg, device) -> list:
+    """The runtime-window kernels: klt_fb_ncc, K1, K4 and K2 at each of
+    DOMAIN_POINTS on frame_pair's 640x480 frames (128 slots, border points
+    and dead slots), and K3's patch entry at PATCH_WINS on N_PATCHES
+    keypoints of the blurred frame (border keypoints included); each
+    against its plain version (flow to FLOW_TOL, NCC to NCC_TOL_DOMAIN,
+    patches bit for bit), with its device, call and plain times and its
+    bound."""
+    from vins_tpu_torch.ops import brief_cuda, klt, klt_cuda
+
+    fe = cfg.frontend
+    iters, eps = fe.klt_iters, fe.klt_eps
+    rows = []
+    for win, L in DOMAIN_POINTS:
+        pyr0, g0, pyr1, g1, pts, valid, _ = frame_pair(
+            _with_window(cfg, win, L), device)
+        tag = f"@{win}x{win},L{L}"
+        k = _k1_k4_k2(pyr0, g0, pyr1, g1, pts, valid, win, iters, eps, tag,
+                      ncc_tol=NCC_TOL_DOMAIN)
+        fb_args = (pyr0, g0, pyr1, g1, pts, valid, win, iters, eps,
+                   FB_THRESH, klt.NCC_MIN)
+        fbc = _check_fb(fb_args, "klt_fb_ncc" + tag, ncc_tol=NCC_TOL_DOMAIN)
+        t_fb = _timed(lambda: klt_cuda.track_fb(*fb_args),
+                      "klt_fb_ncc_kernel")
+        ms_pfb = _call_ms(lambda: klt_cuda.track_fb_plain(*fb_args), reps=2)
+        b_fb = _fb_bound(fb_args)
+        ring, smem = klt_cuda.generic_plan(win, L)
+        shapes = [tuple(p.shape) for p in pyr0]
+        print(f"klt_fb_ncc{tag} (levels {shapes}, {ring} of {L} levels "
+              f"staged, {smem} B shared memory): pts err "
+              f"{fbc['pts_err']:.3g} px, round-trip err {fbc['rt_err']:.3g} "
+              f"px, ncc err {fbc['ncc_err']:.3g} ({fbc['ncc_at_points_err']:.3g} "
+              f"at the kernel's points), status agree "
+              f"{fbc['agree']:.4f} ({fbc['kept']} kept of {k['n_live']} "
+              f"live); {_ms_text(t_fb)} vs plain {ms_pfb:.4f} ms, bound "
+              f"{b_fb['bound_us']:.3f} us ({b_fb['bound_by']})")
+        print(f"K1{tag}: flow err {k['flow_err']:.3g} px, ok agree "
+              f"{k['agree']:.4f}; {_ms_text(k['t_k1'])} vs plain "
+              f"{k['ms_p1']:.4f} ms, bound {k['b_k1']['bound_us']:.3f} us "
+              f"({k['b_k1']['bound_by']}); K4: flow err {k['k4_err']:.3g} "
+              f"px; {_ms_text(k['t_k4'])} vs plain {k['ms_p4']:.4f} ms, "
+              f"bound {k['b_k4']['bound_us']:.3f} us; K2: err "
+              f"{k['ncc_err']:.3g}; {_ms_text(k['t_k2'])} vs plain "
+              f"{k['ms_p2']:.4f} ms, bound {k['b_k2']['bound_us']:.3f} us")
+        extra = dict(win=win, levels=L, ring_levels=ring, smem_bytes=smem,
+                     on_main_path=False)
+        rows += [
+            _entry("klt_fb_ncc" + tag, KLT_SRC,
+                   "vins_tpu/ops/klt_pallas.py:281",
+                   max(fbc["pts_err"], fbc["ncc_err"]), t_fb, ms_pfb, b_fb,
+                   also_replaces="vins_tpu/ops/klt_pallas.py:387",
+                   status_agree=fbc["agree"], round_trip_err=fbc["rt_err"],
+                   ncc_at_points_err=fbc["ncc_at_points_err"],
+                   **dict(extra, on_main_path=(win, L) == DOMAIN_PATH)),
+            _entry("klt_pyramid" + tag, KLT_SRC,
+                   "vins_tpu/ops/klt_pallas.py:281", k["flow_err"],
+                   k["t_k1"], k["ms_p1"], k["b_k1"], **extra),
+            _entry("klt_level" + tag, KLT_SRC,
+                   "vins_tpu/ops/klt_pallas.py:134", k["k4_err"], k["t_k4"],
+                   k["ms_p4"], k["b_k4"], **dict(extra, levels=1)),
+            _entry("patch_ncc" + tag, KLT_SRC,
+                   "vins_tpu/ops/klt_pallas.py:387", k["ncc_err"],
+                   k["t_k2"], k["ms_p2"], k["b_k2"], **extra)]
+
+    _, _, _, _, _, _, raw = frame_pair(cfg, device)
+    blurred, kp, _ = brief_inputs(raw, N_PATCHES, device)
+    for win in PATCH_WINS:
+        p_k = brief_cuda.extract_patches(blurred, kp, win)
+        p_p = brief_cuda.extract_patches_plain(blurred, kp, win)
+        n_diff = int((p_k != p_p).sum())
+        if n_diff:
+            _fail(f"K3 patches at {win}x{win}: {n_diff} of {p_k.numel()} "
+                  f"values differ from the plain version")
+        t = _timed(lambda: brief_cuda.extract_patches(blurred, kp, win),
+                   "patches_kernel")
+        ms_p = _call_ms(lambda: brief_cuda.extract_patches_plain(
+            blurred, kp, win))
+        # Every keypoint's window of the frame, overlaps once, and every
+        # patch written.
+        b = _bound(_window_pixels(blurred, kp, win) * 4.0 + N_PATCHES * 8
+                   + N_PATCHES * win * win * 4,
+                   N_PATCHES * win * win * TAP_OPS)
+        print(f"K3 extract_patches@{win}x{win} N={N_PATCHES}: patches "
+              f"identical; {_ms_text(t)} vs plain {ms_p:.4f} ms, bound "
+              f"{b['bound_us']:.3f} us ({b['bound_by']})")
+        rows.append(_entry(f"extract_patches@{win}x{win}", BRIEF_SRC,
+                           "vins_tpu/ops/klt_pallas.py:344", 0.0, t, ms_p,
+                           b, win=win, on_main_path=False))
+    return rows
+
+
 def _reset_counts() -> None:
     from vins_tpu_torch.ops import brief_cuda, klt_cuda
     klt_cuda.reset_launch_counts()
@@ -1019,7 +1191,8 @@ def _read_counts() -> dict:
             "patch_ncc": klt_cuda.patch_ncc.launches,
             "brief_raw_words": brief_cuda.extract_brief_raw.launches,
             "brief_words": brief_cuda.extract_brief_words.launches,
-            "klt_level": klt_cuda.track_level.launches}
+            "klt_level": klt_cuda.track_level.launches,
+            "extract_patches": brief_cuda.extract_patches.launches}
 
 
 def _ate(est, gt) -> tuple:
@@ -1216,14 +1389,15 @@ def _sync_summary(segments) -> dict:
 
 def slice_phase(cfg, device, use_loop: bool, traj: dict, n_frames: int,
                 block: int = BLOCK, max_init_at=None,
-                profile_at=None) -> dict:
+                profile_at=None, ate_max=ATE_MAX) -> dict:
     """Drive VinsSystem.process_stream over a rendered sequence, the
     system bootstrapping itself (failing if that takes past frame
     max_init_at); returns the measurements, the initialization attempts
     and the synchronizing CUDA calls per block included, and with
     profile_at the device busy share of that dispatch's cycle. Runs on any
     device (the CPU takes the kernels' plain versions, and launch and
-    sync counts stay 0 there)."""
+    sync counts stay 0 there). A loop-off run fails at an aligned ATE of
+    ate_max or more (None: not gated)."""
     import torch
     from vins_tpu_torch import stream as stream_mod
     from vins_tpu_torch.io import synthetic
@@ -1342,8 +1516,8 @@ def slice_phase(cfg, device, use_loop: bool, traj: dict, n_frames: int,
                   f"{res['keyframes_inserted']} keyframe inserts and "
                   f"{attach_tries} attach tries, the blurred-input entry "
                   f"{launches['brief_words']} times")
-    elif ate >= ATE_MAX:
-        _fail(f"aligned ATE RMSE {ate:.4f} m >= {ATE_MAX} m")
+    elif ate_max is not None and ate >= ate_max:
+        _fail(f"aligned ATE RMSE {ate:.4f} m >= {ate_max} m")
     return res
 
 
@@ -2255,10 +2429,46 @@ def _track_errors(cfg, seq, imgs, device) -> dict:
                 launches=launches)
 
 
+def _domain_geometry(cfg, seq, imgs, device) -> dict:
+    """_track_errors at DOMAIN_PATH's window and depth (not gated) and, on
+    the card, the klt_fb_ncc launch the tracker made held against its
+    plain version on the same inputs (_check_fb; fails otherwise)."""
+    import types
+
+    import torch
+    from vins_tpu_torch.ops import klt as klt_mod
+    from vins_tpu_torch.ops import klt_cuda
+
+    calls = []
+
+    def recorded(*args):
+        calls.append(args)
+        return klt_cuda.track_fb(*args)
+
+    win, levels = DOMAIN_PATH
+    klt_mod.klt_cuda = types.SimpleNamespace(**dict(vars(klt_cuda),
+                                                    track_fb=recorded))
+    try:
+        out = _track_errors(_with_window(cfg, win, levels), seq, imgs,
+                            device)
+    finally:
+        klt_mod.klt_cuda = klt_cuda
+    if torch.device(device).type == "cuda":
+        if len(calls) != 1 or out["launches"]["klt_fb_ncc"] != 1:
+            _fail(f"geometry at {DOMAIN_PATH}: {len(calls)} tracking calls, "
+                  f"launches {out['launches']}")
+        chk = _check_fb(calls[0], f"klt_fb_ncc in the tracker at "
+                        f"{DOMAIN_PATH}", ncc_tol=NCC_TOL_DOMAIN)
+        out["against_plain"] = {k: v for k, v in chk.items() if k != "out"}
+    return out
+
+
 def _geometry_part(cfg, device) -> dict:
     """tests/test_frontend.py's fixture at 4 levels, rendered on the
-    device, gated on that test's bounds; then frames 0-1 of the demo's
-    30 Hz sequence at cfg (3 levels), not gated."""
+    device, gated on that test's bounds; the same frames at DOMAIN_PATH
+    (the card against the plain version gated, the distances not); then
+    frames 0-1 of the demo's 30 Hz sequence at cfg (3 levels), not
+    gated."""
     import dataclasses
 
     import torch
@@ -2291,8 +2501,9 @@ def _geometry_part(cfg, device) -> dict:
     imgs30 = synthetic.render_sequence_images(seq30, cfg,
                                               seed=run_synthetic.SEED,
                                               device=device)
-    return dict(fixture=fixture, demo_30hz=_track_errors(cfg, seq30, imgs30,
-                                                         device))
+    return dict(fixture=fixture,
+                domain=_domain_geometry(cfg4, seq, imgs, device),
+                demo_30hz=_track_errors(cfg, seq30, imgs30, device))
 
 
 def _png_rgb(path: str):
@@ -2579,6 +2790,9 @@ def _report_last_slice(run: dict, card: str) -> None:
     g = run["geometry"]
     for tag, e in (("fixture (test_frontend, 4 levels, gated)",
                     g["fixture"]),
+                   (f"fixture at window {DOMAIN_PATH[0]}, {DOMAIN_PATH[1]} "
+                    f"levels (not gated; card against plain "
+                    f"{g['domain'].get('against_plain')})", g["domain"]),
                    ("demo 30 Hz sequence (3 levels, not gated)",
                     g["demo_30hz"])):
         print(f"last-slice geometry, {tag}: frames 0->1, {e['common']} "
@@ -2615,19 +2829,33 @@ def _report_last_slice(run: dict, card: str) -> None:
           f"{rt['part_s']:.1f}, loader {ld['part_s']:.1f}); {card}")
 
 
+def domain_slice_phase(cfg, device) -> dict:
+    """Phase 11: the system at DOMAIN_PATH's window and depth (cfg's
+    frontend otherwise), loop off, over N_FRAMES_DOMAIN frames of the
+    w = 0.35 circle: it must initialize, give finite poses and launch the
+    runtime-window klt_fb_ncc once per tracked frame (slice_phase's
+    gates); its aligned ATE is recorded, not gated (the JAX package's
+    config notes record 4 levels tracking worse than 3)."""
+    win, levels = DOMAIN_PATH
+    return slice_phase(_with_window(cfg, win, levels), device, False,
+                       TRAJ_OFF, N_FRAMES_DOMAIN, ate_max=None)
+
+
 def _loop_on_child(path: str, device: str) -> None:
-    """Phase 4 in a child process: pickles ("ok", slice_phase's result) or
-    ("fail", what stopped it) to path."""
+    """Phases 4 and 11 in a child process: pickles ("ok", (slice_phase's
+    result, domain_slice_phase's)) or ("fail", what stopped it) to
+    path."""
     import pickle
     import traceback
 
     import torch
     from vins_tpu_torch import default_config
     try:
-        out = ("ok", slice_phase(default_config(), torch.device(device),
-                                 True, TRAJ_LOOP, N_FRAMES_LOOP,
-                                 max_init_at=N_BOOT_MAX - 1,
-                                 profile_at=PROFILE_AT))
+        dev = torch.device(device)
+        loop = slice_phase(default_config(), dev, True, TRAJ_LOOP,
+                           N_FRAMES_LOOP, max_init_at=N_BOOT_MAX - 1,
+                           profile_at=PROFILE_AT)
+        out = ("ok", (loop, domain_slice_phase(default_config(), dev)))
     except BaseException as e:      # _fail exits with SystemExit
         out = ("fail", f"{e!r}\n{traceback.format_exc()}")
     with open(path, "wb") as f:
@@ -2635,7 +2863,8 @@ def _loop_on_child(path: str, device: str) -> None:
 
 
 def _start_loop_on(device: str):
-    """Start phase 4 in a spawned process; returns (process, result path)."""
+    """Start phases 4 and 11 in a spawned process; returns (process,
+    result path)."""
     import multiprocessing
     os.makedirs("smoke_out", exist_ok=True)
     path = os.path.join("smoke_out", "loop_on.pkl")
@@ -2647,15 +2876,15 @@ def _start_loop_on(device: str):
     return proc, path
 
 
-def _join_loop_on(proc, path: str) -> dict:
-    """Wait for phase 4's process (at most LOOP_ON_TIMEOUT_S) and return its
-    result; fails if it failed, died or ran over."""
+def _join_loop_on(proc, path: str) -> tuple:
+    """Wait for the process of phases 4 and 11 (at most LOOP_ON_TIMEOUT_S)
+    and return their results; fails if it failed, died or ran over."""
     import pickle
     proc.join(LOOP_ON_TIMEOUT_S)
     if proc.is_alive():
         proc.terminate()
         proc.join()
-        _fail(f"the loop-on run took over {LOOP_ON_TIMEOUT_S} s")
+        _fail(f"the loop-on and domain runs took over {LOOP_ON_TIMEOUT_S} s")
     if not os.path.exists(path):
         _fail(f"the loop-on run's process died (exit {proc.exitcode})")
     with open(path, "rb") as f:
@@ -2691,6 +2920,7 @@ def main() -> None:
     device = torch.device("cuda", 0)
     kernels = kernel_phase(cfg, device)
     kernels_euroc = euroc_kernel_phase(euroc_config(), device)
+    kernels_domain = domain_kernel_phase(cfg, device)
 
     proc, loop_path = _start_loop_on(str(device))
     try:
@@ -2712,12 +2942,14 @@ def main() -> None:
         run_int = interactive_phase(cfg, device, TRAJ_OFF,
                                     N_FRAMES_INTERACTIVE)
         _report_interactive(run_int, card)
-        run_loop = _join_loop_on(proc, loop_path)
+        run_loop, run_dom = _join_loop_on(proc, loop_path)
     finally:
         if proc.is_alive():
             proc.terminate()
             proc.join()
     _report_run("loop", run_loop, card)
+    _report_run(f"domain (window {DOMAIN_PATH[0]}, {DOMAIN_PATH[1]} "
+                f"levels, loop off)", run_dom, card)
 
     for k in kernels:
         k["launches"] = run_loop["launches"][k["name"]]
@@ -2731,8 +2963,14 @@ def main() -> None:
         k["launches_native_loader"] = (
             native_eu["launches"][k["name"].split("@")[0]]
             if native_eu else None)
-    kernels = kernels + kernels_euroc
+    for k in kernels_domain:
+        on_path = (k.get("win"), k.get("levels")) == DOMAIN_PATH
+        k["launches"] = (run_dom["launches"][k["name"].split("@")[0]]
+                         if on_path else 0)
+        k["launches_path"] = "domain"
+    kernels = kernels + kernels_euroc + kernels_domain
     report["loop"], report["loop_off"] = run_loop, run_off
+    report["domain"] = run_dom
     report["realtime"], report["euroc"] = run_rt, run_eu
     report["scale_out"] = run_so
     report["last_slice"] = run_last

@@ -8,8 +8,10 @@ are held against the Pallas kernels they replace, run in interpret mode
 (klt_pallas.track_pyramid_pallas, patch_ncc_pallas, track_level_pallas,
 and the JAX package's TPU branch of klt.track_pyramid_fb that composes
 them), at the main path's window (21), iteration count (10), early-exit
-eps (0.01) and pyramid depth (3), with border points and dead slots. With
-eps = 0 the plain version also equals the JAX package's CPU (XLA) path.
+eps (0.01) and pyramid depth (3), with border points and dead slots;
+tests/test_torch_klt_domain.py holds them at other windows and depths
+(11, 15, 16, 31 and up to 5 levels). With eps = 0 the plain version also
+equals the JAX package's CPU (XLA) path.
 A 3-level pyramid at win 21 needs at least 128 rows at level 0: the
 Pallas patch read loads 32 rows on every level (klt_pallas.py:47-48).
 
@@ -368,7 +370,8 @@ def test_kernels_on_card(scene):
 
 def test_port_frontend_config_defaults_reach_the_kernel():
     """The main path calls K1 with the config's window, iterations and eps
-    (the defaults the kernel's switch is compiled for)."""
+    (the defaults: the 21x21 window the kernels' specialization is
+    compiled for)."""
     fe = tc.FrontendConfig()
     assert (fe.klt_window, fe.klt_iters, fe.klt_eps) == (WIN, ITERS, EPS)
     assert fe.pyramid_levels == L

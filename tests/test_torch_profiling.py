@@ -26,6 +26,20 @@ def test_stage_timers_accumulate():
     assert d["solve"]["mean_ms"] == pytest.approx(t.mean_ms("solve"))
 
 
+def test_module_timers_is_a_shared_registry():
+    """profiling.timers is the module's default StageTimers, as
+    vins_tpu.utils.profiling.timers is the JAX package's: one registry
+    that every importer shares, syncing by default."""
+    from vins_tpu_torch.utils.profiling import timers
+    assert isinstance(j_prof.timers, j_prof.StageTimers)
+    assert isinstance(t_prof.timers, t_prof.StageTimers)
+    assert timers is t_prof.timers and timers.sync == j_prof.timers.sync
+    n = timers.count["module_timers_probe"]
+    with timers.stage("module_timers_probe"):
+        pass
+    assert t_prof.timers.count["module_timers_probe"] == n + 1
+
+
 def test_stage_timers_take_the_staged_result():
     """The staged result may be given up front or put in the yielded dict
     (a tree of tensors); the stage still counts on a CPU result."""

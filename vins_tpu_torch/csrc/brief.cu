@@ -1,5 +1,7 @@
 // BRIEF words of keypoints (K3) for Hopper (sm_90a): from the raw frame,
-// the Gaussian blur fused in, or from a frame blurred beforehand.
+// the Gaussian blur fused in, or from a frame blurred beforehand; and the
+// patch entry, K3's own [N, win, win] output at any window (below, before
+// the launchers).
 //
 // Replaces the Pallas TPU kernel _patches_kernel (vins_tpu/ops/
 // klt_pallas.py:329), called through extract_patches_pallas (:358) by
@@ -96,6 +98,7 @@ constexpr int kRaw = kSide + 2 * kRad;  // raw window side, 54
 // left of the window's first, at most kRaw + 3 pixels, rounded up.
 constexpr int kRS = (kRaw + 3 + 3) / 4 * 4;  // 60 floats
 constexpr int kChunks = kRS / 4;
+constexpr int kMaxPatchWin = 128;     // the patch entry's windows, 1..128
 
 struct BlurTaps {
   float k[kTaps];
@@ -238,6 +241,37 @@ brief_words_kernel(const float* __restrict__ img, int H, int W,
   if ((k & 31) == 0) words[i * (kBits / 32) + (k >> 5)] = (int)word;
 }
 
+// The [win, win] patch of keypoint i (extract_patches_pallas's output):
+// the corner clamped once, as above, each tap the same rounded blend as
+// `tap`, so the patches equal extract_patches_plain bit for bit. One block
+// of kBits threads a keypoint, each thread its taps j = threadIdx.x +
+// kBits * k, read from L2: a patch is written once and read by nothing
+// else in the launch, so staging it would only add a barrier.
+__global__ void __launch_bounds__(kBits)
+patches_kernel(const float* __restrict__ img, int H, int W,
+               const float* __restrict__ pts, int win,
+               float* __restrict__ out) {
+  const int i = blockIdx.x;
+  const float r = (win - 1) / 2.0f;
+  const float hx = (float)((double)(W - win) - 1.001);
+  const float hy = (float)((double)(H - win) - 1.001);
+  const float cx = fminf(fmaxf(__fsub_rn(pts[2 * i], r), 0.0f), hx);
+  const float cy = fminf(fmaxf(__fsub_rn(pts[2 * i + 1], r), 0.0f), hy);
+  const float flx = floorf(cx);
+  const float fly = floorf(cy);
+  const float fx = __fsub_rn(cx, flx);
+  const float fy = __fsub_rn(cy, fly);
+  const float gx = __fsub_rn(1.0f, fx);
+  const float gy = __fsub_rn(1.0f, fy);
+  const float* base = img + (size_t)(int)fly * W + (int)flx;
+  float* o = out + (size_t)i * win * win;
+  for (int j = threadIdx.x; j < win * win; j += kBits) {
+    const int row = j / win;
+    const int col = j - row * win;
+    o[j] = tap(base + (size_t)row * W + col, W, fx, fy, gx, gy);
+  }
+}
+
 template <bool kBlur>
 int launch(const void* img, int H, int W, const void* pts, const void* valid,
            const void* pattern, int N, const BlurTaps& taps, void* words,
@@ -275,6 +309,19 @@ int vins_brief_raw_words(const void* img, int H, int W, const void* pts,
   BlurTaps t;
   for (int j = 0; j < kTaps; ++j) t.k[j] = taps[j];
   return launch<true>(img, H, W, pts, valid, pattern, N, t, words, stream);
+}
+
+// img: [H, W] f32; pts: [N, 2] f32 pixel (x, y); 1 <= win <= 128 and
+// H, W >= win + 2; out: [N, win, win] f32 bilinear patches centred at pts.
+int vins_extract_patches(const void* img, int H, int W, const void* pts,
+                         int N, int win, void* out, void* stream) {
+  if (win < 1 || win > kMaxPatchWin || H < win + 2 || W < win + 2)
+    return (int)cudaErrorInvalidValue;
+  if (N <= 0) return 0;
+  patches_kernel<<<N, kBits, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(img), H, W, static_cast<const float*>(pts),
+      win, static_cast<float*>(out));
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

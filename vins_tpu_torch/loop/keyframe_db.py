@@ -211,6 +211,43 @@ class LoopCloser:
         self._thresh_sq = float(np.float32(
             (lp.geo_ransac_px / cfg.camera.focal) ** 2))
 
+    def warm(self) -> None:
+        """Run every steady-state loop program once before the stream needs
+        it (the JAX closer's warm, which compiles them ahead of time): the
+        kernel library is built on the card, then the keyframe insert's
+        features, BRIEF words, global descriptor and BoW row, the batched
+        scoring at 1 and _VERIFY_PAD queries, one geometric verify with its
+        relative-pose PnP, and the pose graph with its drift run on dummy
+        inputs of the steady-state shapes. The results are discarded; the
+        DB, the graph and self.gen's state are left as they were."""
+        from ..ops import native
+
+        cfg, lp, dev = self.cfg, self.cfg.loop, self.device
+        if dev.type == "cuda":
+            native.library()
+        gen_state = self.gen.get_state()
+        H, W = cfg.camera.height, cfg.camera.width
+        Mw = cfg.frontend.max_features
+        with torch.no_grad():
+            img = torch.zeros((H, W), device=dev)
+            pts, ok, desc = extract_keyframe_features(
+                img, cfg, self.Nf, torch.zeros((Mw, 2), device=dev),
+                torch.zeros((Mw,), dtype=torch.bool, device=dev))
+            cam_mod.pixel_to_normalized(cfg.camera, pts)
+            brief_mod.global_descriptor(desc, ok, pts, (H, W))
+            if self.vocab is not None:
+                vocab_mod.transform(self.vocab, desc, ok)
+            for q in (1, _VERIFY_PAD):
+                self.dispatch_scores(list(range(min(q, self.db.p.shape[0]))))
+            self._verify_hit(0, min(1, self.db.p.shape[0] - 1), None)
+            g, _ = optimize_pose_graph(self.graph, 0,
+                                       iters=lp.pose_graph_iters,
+                                       n_back=lp.sequential_edges)
+            drift_from_solution(g, 0)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        self.gen.set_state(gen_state)
+
     # -- vocabulary --------------------------------------------------------
 
     def _bow_row(self, idx: int) -> None:
@@ -339,6 +376,10 @@ class LoopCloser:
     def row_of(self, uid: int) -> int:
         rows = np.flatnonzero(self._uid_np[:self.count] == uid)
         return int(rows[0]) if len(rows) else -1
+
+    def rows_of(self, uids) -> list:
+        """Current rows for a UID list, dropping resampled-away frames."""
+        return [r for r in (self.row_of(u) for u in uids) if r >= 0]
 
     def edge_index(self, edge_abs: int) -> int:
         """Live edge-table row of an absolute edge id, -1 if evicted."""

@@ -9,7 +9,9 @@ has two entries on one kernel: `extract_brief_raw`, which the system
 calls, takes the raw frame and fuses the Gaussian blur that precedes the
 patch kernel (brief.py:87), staging each keypoint's window in shared
 memory; `extract_brief_words` takes a frame blurred beforehand, the
-direct counterpart of the Pallas kernel. The port follows the TPU
+direct counterpart of the Pallas kernel; `extract_patches` computes the
+Pallas kernel's own output, the [N, win, win] patches at any window from
+1 to 128, in a kernel of its own. The port follows the TPU
 semantics on every device: each keypoint's 49x49 patch corner is clamped
 once, as `_bilinear_patch` clamps it (klt_pallas.py:40-46), so every tap
 of a keypoint within 25 px of a border shifts with the patch. (The JAX
@@ -22,7 +24,7 @@ JAX package's packed uint32 words.
 Dispatch is on the tensor's device: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel or raises. Nothing falls back.
 Each wrapper counts its launches (`extract_brief_raw.launches`,
-`extract_brief_words.launches`).
+`extract_brief_words.launches`, `extract_patches.launches`).
 """
 from __future__ import annotations
 
@@ -32,7 +34,8 @@ import torch
 
 from . import native
 from .image import _sep_filter
-from .klt_cuda import _check_tensor, _patches, _stream_ptr
+from .klt_cuda import (_check_level_shape, _check_tensor, _check_win,
+                       _patches, _stream_ptr)
 
 PATCH_HALF = 24
 PATCH_WIN = 2 * PATCH_HALF + 1     # 49x49 patch
@@ -58,6 +61,36 @@ def extract_patches_plain(img: torch.Tensor, pts: torch.Tensor,
     r = (win - 1) / 2.0
     return _patches(img, pts[:, 0] - r, pts[:, 1] - r, win).reshape(
         pts.shape[0], win, win)
+
+
+def _patches_cuda(img, pts, win):
+    dev = pts.device
+    N = pts.shape[0]
+    H, W = img.shape
+    _check_win(win)
+    _check_level_shape(0, H, W, win)
+    _check_tensor("img", img, (H, W), torch.float32, dev)
+    _check_tensor("pts", pts, (N, 2), torch.float32, dev)
+    out = torch.empty((N, win, win), dtype=torch.float32, device=dev)
+    status = native.library().vins_extract_patches(
+        img.data_ptr(), H, W, pts.data_ptr(), N, win, out.data_ptr(),
+        _stream_ptr(dev))
+    native.check(status, "vins_extract_patches")
+    return out
+
+
+def extract_patches(img: torch.Tensor, pts: torch.Tensor,
+                    win: int = PATCH_WIN) -> torch.Tensor:
+    """K3's own output (extract_patches_pallas): [N, win, win] bilinear
+    patches of img [H, W] centred at pts [N, 2], in one launch on the card;
+    equal to extract_patches_plain bit for bit."""
+    if pts.is_cuda:
+        out = _patches_cuda(img, pts, win)
+        extract_patches.launches += 1
+        return out
+    if pts.device.type != "cpu":
+        raise ValueError(f"extract_patches: unsupported device {pts.device}")
+    return extract_patches_plain(img, pts, win)
 
 
 def extract_brief_words_plain(img: torch.Tensor, pts: torch.Tensor,
@@ -169,8 +202,10 @@ def extract_brief_words(img: torch.Tensor, pts: torch.Tensor,
 
 extract_brief_raw.launches = 0
 extract_brief_words.launches = 0
+extract_patches.launches = 0
 
 
 def reset_launch_counts() -> None:
     extract_brief_raw.launches = 0
     extract_brief_words.launches = 0
+    extract_patches.launches = 0

@@ -9,7 +9,10 @@ K2 replaces `_ncc_kernel` / `patch_ncc_pallas` (klt_pallas.py:368-411).
 `track_fb` runs in one launch what vins_tpu/ops/klt.track_pyramid_fb
 (klt.py:157-204) does on the TPU with three: K1 forward, K1 backward and
 K2, with the post-filters and the gate. The CUDA sources are in
-vins_tpu_torch/csrc/klt.cu. Dispatch is on the tensor's device: a CPU
+vins_tpu_torch/csrc/klt.cu. Like the Pallas kernels, every entry takes any
+window from 1x1 to MAX_WIN x MAX_WIN and up to MAX_LEVELS levels, each
+level holding the window plus its 1 px bilinear border; the CUDA wrappers
+raise outside that domain. Dispatch is on the tensor's device: a CPU
 tensor takes the plain version, a CUDA tensor launches the kernel or
 raises. Nothing falls back.
 
@@ -225,26 +228,46 @@ def _stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-KERNEL_WIN = 21   # the window csrc/klt.cu is compiled for (klt_window)
-KERNEL_MAX_LEVELS = 4   # pyramid levels whose templates klt.cu stages
+# The domain of the CUDA kernels. A window needs win + 1 <= 129 columns,
+# the bound of the Pallas read (klt_pallas.py:52-55); a launch takes up to
+# 32 levels, more than any halving pyramid of int-sized images whose
+# coarsest level holds a window (3 * 2^31 rows at level 0).
+MAX_WIN = 128
+MAX_LEVELS = 32
 
 
 def _check_win(win: int) -> None:
-    if win != KERNEL_WIN:
-        raise ValueError(f"the CUDA kernels are built for a {KERNEL_WIN}x"
-                         f"{KERNEL_WIN} window, not {win}x{win}")
+    if not 1 <= win <= MAX_WIN:
+        raise ValueError(f"the CUDA kernels take windows of 1x1 to "
+                         f"{MAX_WIN}x{MAX_WIN} pixels, not {win}x{win}")
 
 
 def _check_levels(L: int) -> None:
-    if not 1 <= L <= KERNEL_MAX_LEVELS:
-        raise ValueError(f"the CUDA kernels take 1 to {KERNEL_MAX_LEVELS} "
-                         f"pyramid levels, not {L}")
+    if not 1 <= L <= MAX_LEVELS:
+        raise ValueError(f"the CUDA kernels take 1 to {MAX_LEVELS} pyramid "
+                         f"levels, not {L}")
 
 
 def _check_level_shape(lvl: int, H: int, W: int, win: int) -> None:
     if H < win + 2 or W < win + 2:
         raise ValueError(f"level {lvl} ({H}x{W}) is smaller than the "
-                         f"{win}x{win} window plus its bilinear border")
+                         f"{win}x{win} window plus its bilinear border: "
+                         f"the kernels take levels of at least "
+                         f"{win + 2}x{win + 2} pixels")
+
+
+def generic_plan(win: int, L: int) -> Tuple[int, int]:
+    """On the card: how many of L levels the runtime-window kernels stage
+    in shared memory at window win (0: they read the templates from L2)
+    and the dynamic shared memory of such a launch, in bytes. The 21x21
+    window at up to 4 levels takes the specialization instead."""
+    _check_win(win)
+    _check_levels(L)
+    ring, nbytes = ctypes.c_int(), ctypes.c_longlong()
+    native.check(native.library().vins_klt_plan(
+        win, L, ctypes.addressof(ring), ctypes.addressof(nbytes)),
+        "vins_klt_plan")
+    return ring.value, nbytes.value
 
 
 def _track_pyramid_cuda(pyr_prev, grads, pyr_next, pts_prev, valid,

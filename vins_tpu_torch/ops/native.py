@@ -48,6 +48,13 @@ _ARGTYPES = {
                         ctypes.c_int, ctypes.c_int, ctypes.c_float,
                         ctypes.c_float, ctypes.c_float, _VP, _VP, _VP, _VP,
                         _VP],
+    # (no arguments): the runtime-window kernels' shared-memory opt-in
+    "vins_klt_init": [],
+    # win, L, ring_out (int*), bytes_out (long long*)
+    "vins_klt_plan": [ctypes.c_int, ctypes.c_int, _VP, _VP],
+    # img, H, W, pts, N, win, out, stream
+    "vins_extract_patches": [_VP, ctypes.c_int, ctypes.c_int, _VP,
+                             ctypes.c_int, ctypes.c_int, _VP, _VP],
     # img, H, W, pts, valid, pattern, N, words, stream
     "vins_brief_words": [_VP, ctypes.c_int, ctypes.c_int, _VP, _VP, _VP,
                          ctypes.c_int, _VP, _VP],
@@ -133,6 +140,9 @@ def library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+            # Let the runtime-window kernels use the card's opt-in shared
+            # memory (cudaFuncSetAttribute) before any launch is captured.
+            check(lib.vins_klt_init(), "vins_klt_init")
             _lib = lib
         return _lib
 

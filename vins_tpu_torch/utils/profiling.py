@@ -7,7 +7,7 @@ Replaces the reference's TS/TE tick-count macro pair
 
   * `StageTimers.stage(name)` — a context manager that accumulates wall
     time per stage, synchronizing the device of the staged result so that
-    the number means what it says;
+    the number means what it says; `timers` is the module-level registry;
   * `trace(dir)` — torch.profiler around a region, exported as a Chrome
     trace (dir/trace.json);
   * `cost_analysis(fn, *args)` — `flops` from
@@ -81,6 +81,10 @@ class StageTimers:
     def as_dict(self) -> Dict[str, Dict[str, float]]:
         return {n: {"calls": self.count[n], "mean_ms": self.mean_ms(n),
                     "total_s": self.total_s[n]} for n in self.total_s}
+
+
+# Module-level default registry (the reference's macros are global too).
+timers = StageTimers()
 
 
 @contextlib.contextmanager
