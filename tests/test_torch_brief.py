@@ -12,19 +12,11 @@ From the raw frame, extract_brief runs the kernel's raw-frame entry
 (the blur fused in); its plain version is held against the JAX TPU
 branch from the same raw frame.
 """
-import jax
-import jax.numpy as jnp
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
-from jax.experimental.pallas import tpu as pltpu
-
-from conftest import render_cached
-from vins_tpu.config import CameraConfig, VinsConfig
-from vins_tpu.ops import brief as j_brief
-from vins_tpu.ops import corners as j_corners
-from vins_tpu.ops import image as j_img
-from vins_tpu.ops.klt_pallas import extract_patches_pallas
 
 from vins_tpu_torch import interop
 from vins_tpu_torch.ops import brief as t_brief
@@ -37,18 +29,44 @@ torch.set_num_threads(1)
 H, W = 96, 128
 N = 24
 _S = 0.4   # the 480x640 default camera scaled to 192x256
-CFG = VinsConfig(camera=CameraConfig(
-    width=192, height=256, fx=526.600 * _S, fy=526.678 * _S,
-    cx=243.481 * _S, cy=315.280 * _S))
 CPU = torch.device("cpu")
 
 
-def _scene(seed=0):
-    """A blurred random image and N keypoints, the first six on or near
+@pytest.fixture(scope="module")
+def jx():
+    """The JAX package's side of the comparisons. It is imported here, not
+    with the module, so that the card's tests collect and run where JAX is
+    not installed."""
+    pytest.importorskip("jax")
+    import jax
+    import jax.numpy as jnp
+    from conftest import render_cached
+    from jax.experimental.pallas import tpu as pltpu
+
+    from vins_tpu.config import CameraConfig, VinsConfig
+    from vins_tpu.ops import brief, corners, image
+    from vins_tpu.ops.klt_pallas import extract_patches_pallas
+    cfg = VinsConfig(camera=CameraConfig(
+        width=192, height=256, fx=526.600 * _S, fy=526.678 * _S,
+        cx=243.481 * _S, cy=315.280 * _S))
+    return SimpleNamespace(
+        jax=jax, jnp=jnp, pltpu=pltpu, brief=brief, corners=corners,
+        img=image, extract_patches_pallas=extract_patches_pallas,
+        render_cached=render_cached, cfg=cfg,
+        blur=lambda x: image.gaussian_blur(jnp.asarray(x), 2.0))
+
+
+def _port_blur(x):
+    return t_img.gaussian_blur(torch.as_tensor(x), 2.0)
+
+
+def _scene(seed, blur):
+    """A random image, the same blurred with `blur` (one package's
+    gaussian_blur at sigma 2) and N keypoints, the first six on or near
     the border (within 25 px, where the patch clamp shifts every tap)."""
     rng = np.random.default_rng(seed)
     raw = rng.uniform(0, 1, (H, W)).astype(np.float32)
-    blurred = np.asarray(j_img.gaussian_blur(jnp.asarray(raw), 2.0))
+    blurred = np.asarray(blur(raw))
     pts = rng.uniform(0, [W, H], (N, 2)).astype(np.float32)
     pts[:6] = [[0, 0], [W - 1, H - 1], [3.5, H - 2], [W - 5, 2.25],
                [24.5, H / 2], [W / 2, H - 24.75]]
@@ -72,17 +90,18 @@ def _port_words(blurred, pts, valid):
         torch.as_tensor(valid), t_brief.pattern_tensor(CPU)).numpy()
 
 
-def test_brief_pattern_matches_jax():
-    np.testing.assert_array_equal(t_brief.make_pattern(), j_brief._PATTERN)
+def test_brief_pattern_matches_jax(jx):
+    np.testing.assert_array_equal(t_brief.make_pattern(), jx.brief._PATTERN)
 
 
-def test_plain_patches_match_pallas_interpret():
+def test_plain_patches_match_pallas_interpret(jx):
     """The plain patch cut (the taps K3's plain version reads) equals
     extract_patches_pallas in interpret mode, border keypoints included
     (taps within 1e-6)."""
-    _, blurred, pts, _ = _scene()
-    with pltpu.force_tpu_interpret_mode():
-        ref = np.asarray(extract_patches_pallas(
+    jnp = jx.jnp
+    _, blurred, pts, _ = _scene(0, jx.blur)
+    with jx.pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(jx.extract_patches_pallas(
             jnp.asarray(blurred), jnp.asarray(pts), brief_cuda.PATCH_WIN))
     got = brief_cuda.extract_patches_plain(
         torch.as_tensor(blurred), torch.as_tensor(pts)).numpy()
@@ -90,70 +109,74 @@ def test_plain_patches_match_pallas_interpret():
     np.testing.assert_allclose(got, ref, atol=1e-6, rtol=0)
 
 
-def test_brief_words_match_tpu_branch_bit_for_bit():
+def test_brief_words_match_tpu_branch_bit_for_bit(jx):
     """K3's plain version equals the TPU branch of extract_brief composed
     on the CPU (Pallas patches in interpret mode, the one-hot difference
     product at HIGHEST precision, _pack_bits) at every keypoint, border
     keypoints included."""
-    _, blurred, pts, valid = _scene(1)
-    with pltpu.force_tpu_interpret_mode():
-        patches = extract_patches_pallas(jnp.asarray(blurred),
-                                         jnp.asarray(pts),
-                                         brief_cuda.PATCH_WIN)
-    diff = jnp.dot(patches.reshape(N, -1), jnp.asarray(j_brief._CMP_W),
-                   precision=jax.lax.Precision.HIGHEST)
-    ref = np.asarray(j_brief._pack_bits((diff > 0).astype(jnp.uint32)))
+    jnp = jx.jnp
+    _, blurred, pts, valid = _scene(1, jx.blur)
+    with jx.pltpu.force_tpu_interpret_mode():
+        patches = jx.extract_patches_pallas(jnp.asarray(blurred),
+                                            jnp.asarray(pts),
+                                            brief_cuda.PATCH_WIN)
+    diff = jnp.dot(patches.reshape(N, -1), jnp.asarray(jx.brief._CMP_W),
+                   precision=jx.jax.lax.Precision.HIGHEST)
+    ref = np.asarray(jx.brief._pack_bits((diff > 0).astype(jnp.uint32)))
     ref = np.where(valid[:, None], ref, 0).astype(np.uint32)
     got = _port_words(blurred, pts, valid)
     assert got.dtype == np.int32
     np.testing.assert_array_equal(got.view(np.uint32), ref)
 
 
-def test_brief_words_match_jax_cpu_inside_the_border(monkeypatch):
+def test_brief_words_match_jax_cpu_inside_the_border(jx, monkeypatch):
     """Fed the same blurred image, the port's words equal the JAX CPU
     branch of extract_brief (per-tap gather) bit for bit at keypoints
     inside the border."""
-    _, blurred, _, _ = _scene(2)
+    jnp = jx.jnp
+    _, blurred, _, _ = _scene(2, jx.blur)
     rng = np.random.default_rng(3)
     pts = rng.uniform([30, 30], [W - 30, H - 30], (N, 2)).astype(np.float32)
     assert _inside(pts).all()
     valid = np.ones(N, bool)
-    monkeypatch.setattr(j_brief.image_mod, "gaussian_blur",
+    monkeypatch.setattr(jx.brief.image_mod, "gaussian_blur",
                         lambda img, sigma: img)
-    ref = np.asarray(j_brief.extract_brief(
+    ref = np.asarray(jx.brief.extract_brief(
         jnp.asarray(blurred), jnp.asarray(pts), jnp.asarray(valid)))
     got = _port_words(blurred, pts, valid)
     np.testing.assert_array_equal(got.view(np.uint32), ref)
 
 
-def test_extract_brief_from_a_rendered_frame_matches_jax():
+def test_extract_brief_from_a_rendered_frame_matches_jax(jx):
     """From the raw rendered frame, the port's blur and the JAX blur round
     differently in the last bit, which can flip an exact near-tie: at
     most 0.1% of the bits of in-border keypoints may differ (measured:
     0 of 9216, 36 keypoints)."""
-    _, imgs = render_cached(CFG, n_frames=2, seed=4, frame_dt=1.0 / 30.0,
-                            traj_kwargs=dict(w=0.7, bob=0.15),
-                            imu_per_frame=2)
+    jnp = jx.jnp
+    _, imgs = jx.render_cached(jx.cfg, n_frames=2, seed=4,
+                               frame_dt=1.0 / 30.0,
+                               traj_kwargs=dict(w=0.7, bob=0.15),
+                               imu_per_frame=2)
     raw = np.asarray(imgs[1], np.float32)
     Hr, Wr = raw.shape
-    pick = j_corners.select_corners_grid(
-        j_corners.fast_score(jnp.asarray(raw)),
+    pick = jx.corners.select_corners_grid(
+        jx.corners.fast_score(jnp.asarray(raw)),
         jnp.zeros((Hr // 8, Wr // 8), bool), 48, 8)
     pts = np.asarray(pick.pts)
     b = t_brief.PATCH_HALF + 4
     inb = ((pts[:, 0] >= b) & (pts[:, 0] < Wr - b) & (pts[:, 1] >= b)
            & (pts[:, 1] < Hr - b) & np.asarray(pick.valid))
     assert inb.sum() >= 20
-    ref = np.asarray(j_brief.extract_brief(jnp.asarray(raw),
-                                           jnp.asarray(pts),
-                                           jnp.asarray(inb)))
+    ref = np.asarray(jx.brief.extract_brief(jnp.asarray(raw),
+                                            jnp.asarray(pts),
+                                            jnp.asarray(inb)))
     got = t_brief.extract_brief(torch.as_tensor(raw), torch.as_tensor(pts),
                                 torch.as_tensor(inb)).numpy()
     n_diff = int(np.sum(_bits(got.view(np.uint32)[inb]) != _bits(ref[inb])))
     assert n_diff <= 1e-3 * inb.sum() * 256, n_diff
 
 
-def test_gaussian_taps_are_the_blur_taps():
+def test_gaussian_taps_are_the_blur_taps(jx):
     """gaussian_taps(2.0, 2) are the float32 taps gaussian_blur computed
     inline before they were factored out, and the interior row of the
     JAX band matrix that vins_tpu.ops.image.gaussian_blur multiplies by."""
@@ -163,7 +186,7 @@ def test_gaussian_taps_are_the_blur_taps():
     before = tuple(float(np.float32(v)) for v in k)
     taps = t_img.gaussian_taps(2.0, 2)
     assert taps == before
-    band = j_img._band_np(16, tuple(float(v) for v in k))
+    band = jx.img._band_np(16, tuple(float(v) for v in k))
     np.testing.assert_array_equal(np.asarray(taps, np.float32), band[8, 6:11])
 
 
@@ -172,7 +195,7 @@ def test_extract_brief_is_blur_then_words_bit_for_bit():
     gives the words of gaussian_blur(raw, 2.0) followed by
     extract_brief_words_plain, bit for bit, border keypoints and invalid
     rows included."""
-    raw, _, pts, valid = _scene(11)
+    raw, _, pts, valid = _scene(11, _port_blur)
     r, p, v = (torch.as_tensor(raw), torch.as_tensor(pts),
                torch.as_tensor(valid))
     got = t_brief.extract_brief(r, p, v)
@@ -184,7 +207,7 @@ def test_extract_brief_is_blur_then_words_bit_for_bit():
         r, p, v, t_brief.pattern_tensor(CPU), t_img.gaussian_taps(2.0)))
 
 
-def test_extract_brief_raw_matches_tpu_branch_from_raw():
+def test_extract_brief_raw_matches_tpu_branch_from_raw(jx):
     """From a raw rendered frame, the raw-frame entry's plain version
     against the JAX package's TPU branch composed on the CPU: the band-
     matmul blur, extract_patches_pallas in interpret mode, the one-hot
@@ -194,13 +217,15 @@ def test_extract_brief_raw_matches_tpu_branch_from_raw():
     where two reflect-101 taps coincide at a border, which can flip an
     exact near-tie: at most 0.1% of the valid keypoints' bits may differ
     (measured: 0 of 10240, 40 valid keypoints)."""
-    _, imgs = render_cached(CFG, n_frames=2, seed=4, frame_dt=1.0 / 30.0,
-                            traj_kwargs=dict(w=0.7, bob=0.15),
-                            imu_per_frame=2)
+    jnp = jx.jnp
+    _, imgs = jx.render_cached(jx.cfg, n_frames=2, seed=4,
+                               frame_dt=1.0 / 30.0,
+                               traj_kwargs=dict(w=0.7, bob=0.15),
+                               imu_per_frame=2)
     raw = np.asarray(imgs[1], np.float32)
     Hr, Wr = raw.shape
-    pick = j_corners.select_corners_grid(
-        j_corners.fast_score(jnp.asarray(raw)),
+    pick = jx.corners.select_corners_grid(
+        jx.corners.fast_score(jnp.asarray(raw)),
         jnp.zeros((Hr // 8, Wr // 8), bool), 48, 8)
     pts = np.array(pick.pts, np.float32)
     pts[:8] = [[0, 0], [Wr - 1, Hr - 1], [1.5, Hr - 2.25], [Wr - 3, 0.75],
@@ -210,13 +235,13 @@ def test_extract_brief_raw_matches_tpu_branch_from_raw():
     valid[:8] = True
     valid[8::5] = False
     n = pts.shape[0]
-    blurred = j_img.gaussian_blur(jnp.asarray(raw), 2.0)
-    with pltpu.force_tpu_interpret_mode():
-        patches = extract_patches_pallas(blurred, jnp.asarray(pts),
-                                         brief_cuda.PATCH_WIN)
-    diff = jnp.dot(patches.reshape(n, -1), jnp.asarray(j_brief._CMP_W),
-                   precision=jax.lax.Precision.HIGHEST)
-    ref = np.asarray(j_brief._pack_bits((diff > 0).astype(jnp.uint32)))
+    blurred = jx.img.gaussian_blur(jnp.asarray(raw), 2.0)
+    with jx.pltpu.force_tpu_interpret_mode():
+        patches = jx.extract_patches_pallas(blurred, jnp.asarray(pts),
+                                            brief_cuda.PATCH_WIN)
+    diff = jnp.dot(patches.reshape(n, -1), jnp.asarray(jx.brief._CMP_W),
+                   precision=jx.jax.lax.Precision.HIGHEST)
+    ref = np.asarray(jx.brief._pack_bits((diff > 0).astype(jnp.uint32)))
     ref = np.where(valid[:, None], ref, 0).astype(np.uint32)
     got = brief_cuda.extract_brief_raw(
         torch.as_tensor(raw), torch.as_tensor(pts), torch.as_tensor(valid),
@@ -231,7 +256,7 @@ def test_extract_brief_raw_matches_tpu_branch_from_raw():
 def test_extract_brief_raw_refuses_other_devices():
     """Dispatch is on the tensor's device: a tensor on any device but the
     CPU or a CUDA card raises instead of falling back."""
-    raw, _, pts, valid = _scene(12)
+    raw, _, pts, valid = _scene(12, _port_blur)
     meta = lambda x: torch.as_tensor(x).to("meta")
     with pytest.raises(ValueError, match="unsupported device"):
         brief_cuda.extract_brief_raw(
@@ -239,10 +264,11 @@ def test_extract_brief_raw_refuses_other_devices():
             meta(t_brief.pattern_tensor(CPU)), t_img.gaussian_taps(2.0))
 
 
-def test_fast_score_matches_jax():
-    _, blurred, _, _ = _scene(5)
-    img = np.asarray(j_img.gaussian_blur(jnp.asarray(blurred), 1.0))
-    ref = np.asarray(j_corners.fast_score(jnp.asarray(img)))
+def test_fast_score_matches_jax(jx):
+    jnp = jx.jnp
+    _, blurred, _, _ = _scene(5, jx.blur)
+    img = np.asarray(jx.img.gaussian_blur(jnp.asarray(blurred), 1.0))
+    ref = np.asarray(jx.corners.fast_score(jnp.asarray(img)))
     got = t_corners.fast_score(torch.as_tensor(img)).numpy()
     assert (ref > 0).sum() > 100
     np.testing.assert_array_equal(got, ref)
@@ -253,18 +279,20 @@ def _random_words(rng, n):
         np.uint32)
 
 
-def test_hamming_matrix_matches_jax():
+def test_hamming_matrix_matches_jax(jx):
+    jnp = jx.jnp
     rng = np.random.default_rng(6)
     a, b = _random_words(rng, 40), _random_words(rng, 33)
     b[:5] = a[:5] ^ np.uint32(0x80000001)     # words >= 2**31, near pairs
-    ref = np.asarray(j_brief.hamming_matrix(jnp.asarray(a), jnp.asarray(b)))
+    ref = np.asarray(jx.brief.hamming_matrix(jnp.asarray(a), jnp.asarray(b)))
     got = t_brief.hamming_matrix(torch.as_tensor(a.view(np.int32)),
                                  torch.as_tensor(b.view(np.int32))).numpy()
     np.testing.assert_array_equal(got, ref)
 
 
 @pytest.mark.parametrize("ratio", [1.0, 0.85])
-def test_match_descriptors_matches_jax(ratio):
+def test_match_descriptors_matches_jax(jx, ratio):
+    jnp = jx.jnp
     rng = np.random.default_rng(7)
     a, b = _random_words(rng, 64), _random_words(rng, 80)
     # Noisy copies so that some pairs pass the distance gate.
@@ -272,7 +300,7 @@ def test_match_descriptors_matches_jax(ratio):
     bits = np.unpackbits(a[:30].view(np.uint8), axis=1) ^ flips
     b[10:40] = np.packbits(bits, axis=1).view(np.uint32)
     av, bv = rng.uniform(size=64) > 0.1, rng.uniform(size=80) > 0.1
-    ref = j_brief.match_descriptors(jnp.asarray(a), jnp.asarray(b),
+    ref = jx.brief.match_descriptors(jnp.asarray(a), jnp.asarray(b),
                                     jnp.asarray(av), jnp.asarray(bv),
                                     max_dist=80, ratio=ratio)
     got = t_brief.match_descriptors(
@@ -284,12 +312,13 @@ def test_match_descriptors_matches_jax(ratio):
     np.testing.assert_array_equal(got.ok.numpy(), np.asarray(ref.ok))
 
 
-def test_global_descriptor_matches_jax():
+def test_global_descriptor_matches_jax(jx):
+    jnp = jx.jnp
     rng = np.random.default_rng(8)
     d = _random_words(rng, 50)
     pts = rng.uniform(0, [W, H], (50, 2)).astype(np.float32)
     valid = rng.uniform(size=50) > 0.2
-    ref = np.asarray(j_brief.global_descriptor(
+    ref = np.asarray(jx.brief.global_descriptor(
         jnp.asarray(d), jnp.asarray(valid), jnp.asarray(pts), (H, W)))
     got = t_brief.global_descriptor(
         torch.as_tensor(d.view(np.int32)), torch.as_tensor(valid),
@@ -297,19 +326,20 @@ def test_global_descriptor_matches_jax():
     np.testing.assert_allclose(got, ref, atol=1e-6, rtol=0)
     np.testing.assert_array_equal(
         t_brief.unpack_bits(torch.as_tensor(d.view(np.int32))).numpy(),
-        np.asarray(j_brief._unpack_bits(jnp.asarray(d))))
+        np.asarray(jx.brief._unpack_bits(jnp.asarray(d))))
 
 
-def test_interop_carries_brief_words_bit_for_bit():
+def test_interop_carries_brief_words_bit_for_bit(jx):
     """A JAX LoopAnchor's uint32 words (many >= 2**31) cross into the
     port's int32 words as bit patterns, and back."""
+    jnp = jx.jnp
     from vins_tpu.stream import LoopAnchor as JAnchor
     from vins_tpu_torch.stream import LoopAnchor as TAnchor
 
     rng = np.random.default_rng(9)
     words = _random_words(rng, 16)
     assert (words >= 2 ** 31).any()
-    tree = jax.device_get(JAnchor.inactive(16)._replace(
+    tree = jx.jax.device_get(JAnchor.inactive(16)._replace(
         desc_old=jnp.asarray(words)))
     port = interop.to_torch(tree, TAnchor.inactive(16, device="cpu"))
     assert port.desc_old.dtype == torch.int32
@@ -328,7 +358,7 @@ def test_brief_kernel_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     dev = torch.device("cuda", 0)
-    _, blurred, pts, valid = _scene(10)
+    _, blurred, pts, valid = _scene(10, _port_blur)
     args = (torch.as_tensor(blurred, device=dev),
             torch.as_tensor(pts, device=dev),
             torch.as_tensor(valid, device=dev), t_brief.pattern_tensor(dev))
@@ -349,7 +379,7 @@ def test_brief_raw_kernel_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     dev = torch.device("cuda", 0)
-    raw, _, pts, valid = _scene(13)
+    raw, _, pts, valid = _scene(13, _port_blur)
     pts[6:10] = [[1.0, H / 2], [W - 1.5, H / 3], [W / 2, 0.25],
                  [W / 3, H - 1.0]]
     valid[6:10] = True

@@ -1,21 +1,35 @@
 """The tracking kernels across their domain on one CUDA card.
 
-    python3 tools/torch_klt_domain_sweep.py        (from the repo root)
+    python3 tools/torch_klt_domain_sweep.py [--witness]   (from the repo root)
 
 Three parts, each point held against the plain versions with
-chip_smoke.py's tolerances (fails otherwise; K1's flow on the slots whose
-plain pass converged at level 0, its largest difference over every kept
-slot reported beside it), one JSON line a point:
+chip_smoke.py's tolerances (fails otherwise; flow to FLOW_TOL on the slots
+whose plain pass converged at level 0 and to FLOW_TOL_UNCONVERGED on the
+others, both reported), one JSON line a point with the runtime-window
+plan (template taps a thread, staged levels, shared memory):
   * points chip_smoke.py does not run, on its 640x480 frame pair with 128
-    slots: windows 1, 11, 16, 21 (5 levels: past the specialization's 4),
-    31 (4 levels) and 128;
-  * the ring's refill and the L2 mode, on a smoothed random frame pair
-    with 128 random points: window 63 at 4 levels on 1024x768 (3 of 4
-    levels fit in shared memory), 100 and 112 at 2 levels (1 of 2) and
-    113 at 2 levels (none: templates read from L2) on 512x512;
+    slots: window 1, 11, the plan's boundaries 16 | 17, 22 | 23, 32 | 33,
+    45 | 46 (template taps a thread 1 | 2 | 4 | 8 | 16) and 64 | 65
+    (registers | shared memory), 21 at 5 levels (past the
+    specialization's 4), 31 at 4 levels and 128;
+  * the ring's refill and the wide windows, on a smoothed random frame
+    pair with 128 random points: window 63 at 4 levels on 1024x768 (3 of
+    4 levels staged at a time), 100, 112 and 113 at 2 levels (every
+    tap's template in shared memory) and 114 at 2 levels (the taps that
+    do not fit blended from L2) on 512x512;
   * the runtime-window variant beside the specialization at nearly the
     same point: klt_fb_ncc at windows 20 and 22 (variant) and 21
     (specialization), 3 levels, device times in turns.
+With --witness it runs only a fourth part, on the frame pair at the
+first part's points: K1's forward flow from the kernel, from its plain
+version on the card, from the plain version on the CPU and from the plain
+version in float64 on the CPU (the same inputs), each float32 result's
+largest distance to the float64 one over the kept slots whose plain pass
+converged at level 0, the kept slots that did not, and the gated slots,
+and the kernel's largest distance to the card's plain version there,
+with the slots farthest from float64: whether a difference between the
+kernel and its plain version lies in the kernel or in the rounding every
+float32 version carries.
 Device time: chip_smoke._device_ms (20 calls in a CUDA graph, one replay
 timed with CUDA events). Needs a card; imports nothing of JAX.
 """
@@ -34,9 +48,11 @@ from vins_tpu_torch.ops import brief_cuda, image, klt, klt_cuda  # noqa: E402
 from vins_tpu_torch.ops import native  # noqa: E402
 
 ITERS, EPS = 10, 0.01
-FRAME_POINTS = ((1, 3), (11, 2), (16, 2), (21, 5), (31, 4), (128, 1))
+FRAME_POINTS = ((1, 3), (11, 2), (16, 2), (17, 2), (21, 5), (22, 2),
+                (23, 2), (31, 4), (32, 2), (33, 2), (45, 2), (46, 2),
+                (64, 2), (65, 2), (128, 1))
 REFILL_POINTS = ((63, 4, 1024, 768), (100, 2, 512, 512),
-                 (112, 2, 512, 512), (113, 2, 512, 512))
+                 (112, 2, 512, 512), (113, 2, 512, 512), (114, 2, 512, 512))
 TURNS = (21, 20, 22, 21, 22, 20, 21)
 
 
@@ -65,23 +81,67 @@ def _point(part, win, L, pair):
     tag = f"@{win}x{win},L{L}"
     r = c._check_fb(fb, "klt_fb_ncc" + tag, ncc_tol=c.NCC_TOL_DOMAIN)
     k = c._k1_k4_k2(pyr0, g0, pyr1, g1, pts, valid, win, ITERS, EPS, tag,
-                    ncc_tol=c.NCC_TOL_DOMAIN, converged_only=True)
+                    ncc_tol=c.NCC_TOL_DOMAIN)
     patches = brief_cuda.extract_patches(pyr0[0], pts, win)
     if not torch.equal(patches, brief_cuda.extract_patches_plain(
             pyr0[0], pts, win)):
         c._fail(f"K3 patches{tag} differ from the plain version")
-    ring, smem = klt_cuda.generic_plan(win, L)
+    plan = klt_cuda.generic_plan(win, L)
     print(json.dumps(dict(
         part=part, win=win, levels=L, shape=list(pyr0[0].shape),
-        ring_levels=ring, smem_bytes=smem,
-        specialization=win == 21 and L <= 4,
+        **plan._asdict(), specialization=win == 21 and L <= 4,
         fb_ms=c._device_ms(lambda: klt_cuda.track_fb(*fb)),
         k1_ms=k["t_k1"]["ms"], k4_ms=k["t_k4"]["ms"], k2_ms=k["t_k2"]["ms"],
-        fb_pts_err=r["pts_err"], fb_ncc_at_points_err=r["ncc_at_points_err"],
-        k1_flow_err_converged=k["flow_err"],
-        k1_flow_err_all=k["flow_err_all"], k4_flow_err=k["k4_err"],
+        fb_pts_err=r["pts_err"],
+        fb_pts_err_unconverged=r["pts_err_unconverged"],
+        fb_ncc_err=r["ncc_err"],
+        fb_ncc_err_unconverged=r["ncc_err_unconverged"],
+        fb_ncc_at_points_err=r["ncc_at_points_err"],
+        k1_flow_err=k["flow_err"],
+        k1_flow_err_unconverged=k["flow_err_unconverged"],
+        k1_unconverged_slots=k["n_unconverged"], k4_flow_err=k["k4_err"],
+        k4_flow_err_unconverged=k["k4_err_unconverged"],
         k2_err=k["ncc_err"], status_agree=r["agree"], kept=r["kept"])),
         flush=True)
+
+
+def _witness(win, L, pair):
+    pyr0, g0, pyr1, _, pts, valid = pair
+    runs = []
+    p_k, ok_k, _ = klt_cuda.track_pyramid(pyr0, g0, pyr1, pts, valid, win,
+                                          ITERS, EPS)
+    p_p, ok_p, _ = klt_cuda.track_pyramid_plain(
+        pyr0, g0, pyr1, pts, valid, win, ITERS, EPS, iters_run=runs)
+    on = lambda xs, f: [f(x) for x in xs]
+    cpu = lambda x: x.cpu()
+    f64 = lambda x: x.cpu().double()
+    p_c, ok_c, _ = klt_cuda.track_pyramid_plain(
+        on(pyr0, cpu), [on(g, cpu) for g in g0], on(pyr1, cpu), cpu(pts),
+        cpu(valid), win, ITERS, EPS)
+    p_64, ok_64, _ = klt_cuda.track_pyramid_plain(
+        on(pyr0, f64), [on(g, f64) for g in g0], on(pyr1, f64), f64(pts),
+        cpu(valid), win, ITERS, EPS)
+    dist = lambda a, b: (a.cpu().double() - b.cpu().double()).abs().amax(-1)
+    ok = ok_p.cpu()
+    conv = runs[-1].cpu() < ITERS
+    sets = dict(kept_converged=ok & conv, kept_unconverged=ok & ~conv,
+                gated=~ok & valid.cpu())
+    top = lambda d, m: float(d[m].max()) if bool(m.any()) else 0.0
+    to64 = dict(kernel=dist(p_k, p_64), card_plain=dist(p_p, p_64),
+                cpu_plain=dist(p_c, p_64))
+    far = torch.argsort(-to64["kernel"] * sets["kept_unconverged"])[:4]
+    print(json.dumps(dict(
+        part="witness", win=win, levels=L,
+        ok_agree=[bool(torch.equal(ok_k.cpu(), ok)),
+                  bool(torch.equal(ok_c, ok)), bool(torch.equal(ok_64, ok))],
+        n={k: int(m.sum()) for k, m in sets.items()},
+        to_float64={v: {k: top(d, m) for k, m in sets.items()}
+                    for v, d in to64.items()},
+        kernel_to_card_plain={k: top(dist(p_k, p_p), m)
+                              for k, m in sets.items()},
+        farthest=[dict(slot=int(i), iters=[int(r[i]) for r in runs],
+                       **{v: float(d[i]) for v, d in to64.items()})
+                  for i in far])), flush=True)
 
 
 def main():
@@ -92,6 +152,11 @@ def main():
     card = c._card_line()
     print(card)
     cfg = default_config()
+    if sys.argv[1:] == ["--witness"]:
+        for win, L in FRAME_POINTS:
+            _witness(win, L, c.frame_pair(c._with_window(cfg, win, L),
+                                          dev)[:6])
+        return
     for win, L in FRAME_POINTS:
         _point("frame_pair", win, L,
                c.frame_pair(c._with_window(cfg, win, L), dev)[:6])

@@ -45,11 +45,9 @@
 // staged templates have constant sizes, so its loops unroll and its
 // template taps live in registers. Every other window from 1 to 128 and
 // depth up to 32 levels runs the runtime-window variant (klt_*_kernel_r,
-// below), which keeps the same arithmetic and guarantees. The
-// specialization stays because the variant is slower at nearly the same
-// point (its taps past two per thread re-blend their templates at each
-// use; tools/torch_klt_domain_sweep.py times the fused kernel at windows
-// 20 and 22 against the specialization at 21).
+// below), which keeps the same arithmetic and guarantees and, up to
+// window 64, the same design, specialized on the template taps a thread
+// holds instead of on the window.
 //
 // The design against that latency (the specialization):
 // - One thread block of 256 threads per slot (M = 128 slots fill 128 of
@@ -85,29 +83,46 @@
 // Gates as in the Pallas kernels: the min-eigenvalue gate sets `ok`,
 // gated slots still iterate, dead input slots skip every level's loop.
 //
-// The runtime-window variant, for any win in 1..128 and L in 1..32:
+// The runtime-window variant, for any win in 1..128 and L in 1..32, is
+// compiled for the number of template taps a thread holds, KT in
+// {1, 2, 4, 8, 16}; the window stays a run-time value. A launch takes
+// the least KT with 256 KT >= win^2 (KT 16 covers win <= 64):
 // - The same block of 256 threads a slot, Reducer, corner clamp, blend,
-//   block-uniform early exit and gates. Thread t walks taps t, t + 256, ...
-//   of the win x win window; the first two keep their template values in
-//   registers (all of them up to win 22), the others blend theirs again
-//   from the staged window at each use. A thread so holds the same
-//   registers at any window (nvcc -Xptxas -v: 103 for the fused kernel,
-//   110 for K1, 80 for K4 with 14 bytes spilled), where taps in registers
-//   would need 3 x 64 of them at win 128; the price is three blends more
-//   per tap and iteration past the cache.
+//   block-uniform early exit and gates. Thread t holds taps t, t + 256,
+//   ... up to KT of them: their offsets in a staged window and in the tile
+//   are computed once a launch (TapsR), each level blends their template
+//   and gradients once into registers, and the tap loops unroll over KT
+//   with one predicate on the thread's tap count.
+// - The next-frame tile is staged through registers (TileR: every load of
+//   a thread in flight before the first store, as the specialization's
+//   Tile) and read with the specialization's bank-spread row stride.
 // - Shared memory is dynamic, up to the card's opt-in limit (227 KB on an
 //   H100; vins_klt_init sets cudaFuncAttributeMaxDynamicSharedMemorySize):
-//   the reduction totals, the next-frame tile of (win+1+2m)^2 pixels and a
-//   ring of R staged levels, R = min(L, 8, what fits beside the tile). The
-//   R coarsest levels are issued at block start, coarsest first, one
-//   commit group each; when a level ends, its slot takes level lvl - R.
-//   A level waits for its own group: min(R - 1, lvl) newer groups may
-//   still be in flight.
-// - Where not even one level fits beside the tile (win >= 113; at win 128
-//   the three windows take 204 KB and the tile 93 KB), R = 0 and every
-//   template tap is read from L2 in place (the planes stay cached there).
-// - The NCC of the fused kernel reads its two level-0 windows from L2 (the
-//   ring has been refilled by then); K2 reads its windows the same way.
+//   the reduction totals, the tile of (win+1+2m)^2 pixels and a ring of R
+//   staged levels, R = min(L, 8, what fits beside the tile). The R
+//   coarsest levels are issued at block start, coarsest first, one commit
+//   group each; a level's slot takes level lvl - R as soon as every
+//   thread has blended from it. A level waits for its own group:
+//   min(R - 1, lvl) newer groups may still be in flight.
+// - The fused kernel's NCC takes the level-0 templates the threads hold,
+//   forward around pts and backward around the forward result, as the
+//   specialization does: it reads no pixel again. K2 (no caller on the
+//   main path) has one body for every window, not compiled for KT: two
+//   passes over its two windows from L2 (tools/torch_klt_turns.py: bodies
+//   that blend each tap once, in registers or in shared memory, were
+//   slower at some window, and each body adds build time).
+// tools/torch_klt_ablation.py measured where the variant before this
+// design lost its 1.3x against the specialization at windows 20-22
+// (where every template tap already sat in registers): the tile staged
+// one serialized load at a time, the per-tap predicate and the runtime
+// geometry of each tap, then the NCC read again from L2 (PERF.md).
+// Past 64 (KT would pass 16 registers a tap array) the blended templates
+// of a level lie in shared memory beside the tile, 3 floats a tap, each
+// blended once a level: all win^2 taps up to win 113 in 227 KB; from 114
+// as many as fit (at 128, 11,616 of 16,384 beside the 93 KB tile), the
+// rest blended from L2 at each use (the planes stay cached there). The
+// tile is staged in batches of loads; the fused NCC keeps its taps in
+// shared memory too.
 //
 // Neither wgmma nor TMA: each slot's sums are 441-long dot products over
 // data-dependent windows, so there is no matrix product for wgmma; the
@@ -116,8 +131,10 @@
 // every frame, while cp.async takes any 4-byte-aligned address.
 //
 // Built by vins_tpu_torch/ops/native.py with
-//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+//        -Xcompiler -fPIC --split-compile=0 -Xptxas --split-compile=0 -c
+// (the split spreads this file's many kernel instantiations over every
+// core), then linked with the other sources into one shared library,
 // and bound with ctypes: each extern "C" launcher enqueues on the given
 // stream, does not synchronize, and returns cudaGetLastError().
 
@@ -126,6 +143,8 @@
 #include <math.h>
 
 #include <algorithm>
+#include <initializer_list>
+#include <type_traits>
 
 namespace {
 
@@ -696,13 +715,28 @@ klt_fb_ncc_kernel(const float* __restrict__ pts,
 constexpr int kMaxWin = 128;      // win + 1 <= 129: the Pallas read's bound
 constexpr int kMaxLevelsR = 32;   // levels a launch takes
 constexpr int kRing = 8;          // staged levels in flight at most
-constexpr int kCache = 2;         // taps a thread keeps in registers
 constexpr int kRedFloats = 2 * kWarps * kRed;
+// Where a launch keeps the blended templates (KT): KT > 0 taps a thread in
+// registers, one of {1, 2, 4, 8, 16}, the least with kThreads * KT >= win^2
+// (win <= 64); kSharedT: all win^2 taps in shared memory, blended once a
+// level (up to win 113 on an H100); kPartT: as many as fit beside the
+// tile there, the rest blended from the planes at each use.
+constexpr int kSharedT = 0;
+constexpr int kPartT = -1;
+constexpr int kKTs[] = {1, 2, 4, 8, 16};
+
+// The largest window whose taps kThreads threads of KT taps cover.
+__host__ __device__ constexpr int max_win(int kt) {
+  return kt == 1 ? 16 : kt == 2 ? 22 : kt == 4 ? 32 : kt == 8 ? 45 : 64;
+}
+
+// Arrays of KT taps, one element where KT <= 0 (unused there).
+__host__ __device__ constexpr int regs(int kt) { return kt > 0 ? kt : 1; }
 
 // The geometry of Geom<WIN>, from the window at run time.
 struct GeomR {
   int win, w1, ws, win_pix, tile, ts;
-  __host__ __device__ explicit GeomR(int w)
+  __host__ __device__ constexpr explicit GeomR(int w)
       : win(w), w1(w + 1), ws((w + 1 + 3 + 3) / 4 * 4), win_pix(w1 * ws),
         tile(w1 + 2 * kMargin), ts(tile + ((w - tile) % 32 + 32) % 32) {}
   // Floats of the tile (rounded up to whole 16-byte chunks) and of one
@@ -716,7 +750,8 @@ struct GeomR {
 using PlanesR = PlanesN<kMaxLevelsR>;
 
 // The dynamic shared memory: the reduction totals, the next-frame tile and
-// a ring of R staged levels (R = 0: templates are read from L2).
+// after it either a ring of R staged levels (KT > 0) or the blended
+// templates t, gx, gy of the window's first nsh taps (KT <= 0).
 struct SmemR {
   float (*red)[kWarps * kRed];
   float* tile;
@@ -730,8 +765,8 @@ struct SmemR {
   }
 };
 
-// This thread's taps j = threadIdx.x + kThreads * k of a win x win
-// window, k = 0, 1, ..., as (row, col), stepped without a division.
+// This thread's taps j = threadIdx.x + kThreads * k of a win x win window,
+// k = 0, 1, ..., as (row, col), stepped without a division.
 struct TapWalk {
   int row, col, dr, dc, win;
   __device__ explicit TapWalk(int w) : win(w) {
@@ -741,12 +776,36 @@ struct TapWalk {
     dc = kThreads - dr * w;
   }
   __device__ __forceinline__ bool on() const { return row < win; }
+  __device__ __forceinline__ int tap() const { return row * win + col; }
   __device__ __forceinline__ void next() {
     row += dr;
     col += dc;
     if (col >= win) {
       col -= win;
       ++row;
+    }
+  }
+};
+
+// This thread's KT taps: their offsets in a staged window (rows of ws
+// floats) and in the tile (rows of ts), and how many lie in the window.
+// Computed once a launch, so the tap loops unroll over KT.
+template <int KT>
+struct TapsR {
+  int win[regs(KT)];
+  int tile[regs(KT)];
+  int n = 0;
+
+  __device__ explicit TapsR(const GeomR& g) {
+    const int taps = g.win * g.win;
+    if (KT > 0 && (int)threadIdx.x < taps)
+      n = (taps - 1 - (int)threadIdx.x) / kThreads + 1;
+    TapWalk w(g.win);
+#pragma unroll
+    for (int k = 0; k < KT; ++k) {
+      win[k] = w.row * g.ws + w.col;
+      tile[k] = w.row * g.ts + w.col;
+      w.next();
     }
   }
 };
@@ -765,6 +824,33 @@ struct Src {
 __device__ __forceinline__ float corner_limit_r(int n, int win) {
   return (float)((double)(n - win) - 1.001);
 }
+
+// Clamp the window corner around (cx, cy) (the window's centre) on an
+// [H, W] plane, as clamped_corner does at a fixed window.
+__device__ __forceinline__ void centred_corner(const GeomR& g, float cx,
+                                               float cy, int H, int W,
+                                               int& ix, int& iy, float& fx,
+                                               float& fy) {
+  const float r = (g.win - 1) / 2.0f;
+  corner(cx - r, cy - r, corner_limit_r(W, g.win), corner_limit_r(H, g.win),
+         ix, iy, fx, fy);
+}
+
+// The clamped corners of two windows centred at (pax, pay) and (pbx, pby)
+// on [H, W] planes, the clamp's limits computed once.
+struct CornerPair {
+  int ia, ja, ib, jb;
+  float fxa, fya, fxb, fyb;
+  __device__ __forceinline__ CornerPair(const GeomR& g, int H, int W,
+                                        float pax, float pay, float pbx,
+                                        float pby) {
+    const float r = (g.win - 1) / 2.0f;
+    const float hx = corner_limit_r(W, g.win);
+    const float hy = corner_limit_r(H, g.win);
+    corner(pax - r, pay - r, hx, hy, ia, ja, fxa, fya);
+    corner(pbx - r, pby - r, hx, hy, ib, jb, fxb, fyb);
+  }
+};
 
 // Issue the (win+1)^2 window at (ix, iy) of `plane` into dst, as
 // issue_window lays it out.
@@ -802,12 +888,11 @@ __device__ __forceinline__ void issue_window_r(const GeomR& g, float* dst,
 __device__ __forceinline__ void issue_level_r(const GeomR& g, float* ring,
                                               int R, const PlanesR& P,
                                               int lvl, float px, float py) {
-  const float r = (g.win - 1) / 2.0f;
   const float scale = ldexpf(1.0f, lvl);
   int ix, iy;
   float fx, fy;
-  corner(px / scale - r, py / scale - r, corner_limit_r(P.W[lvl], g.win),
-         corner_limit_r(P.H[lvl], g.win), ix, iy, fx, fy);
+  centred_corner(g, px / scale, py / scale, P.H[lvl], P.W[lvl], ix, iy, fx,
+                 fy);
   float* slot = ring + (lvl % R) * g.level_floats();
   issue_window_r(g, slot, P.tmpl[lvl], P.W[lvl], ix, iy);
   issue_window_r(g, slot + g.win_pix, P.gx[lvl], P.W[lvl], ix, iy);
@@ -822,22 +907,98 @@ __device__ __forceinline__ void issue_ring(const GeomR& g, float* ring, int R,
   for (int k = 0; k < R; ++k) issue_level_r(g, ring, R, P, L - 1 - k, px, py);
 }
 
-// The next-frame tile of the runtime window, staged straight into shared
-// memory (the caller publishes it with a barrier).
+// The next-frame tile of a runtime window: its origin clamped into the
+// plane as Tile's, kTile = win + 1 + 2 kMargin pixels a side (fewer where
+// the plane is smaller). KT > 0 stages it through registers: every load
+// of a thread is in flight before the first store, as Tile does; the
+// wide windows stage it in batches of kBatch loads.
+template <int KT>
 struct TileR {
+  static constexpr int kSide = max_win(KT) + 1 + 2 * kMargin;
+  static constexpr int kLoads =
+      KT > 0 ? (kSide * kSide + kThreads - 1) / kThreads : 1;
   int ox = 0, oy = 0, tw = 0, th = 0;
+  float v[kLoads];
 
-  __device__ __forceinline__ void stage(const GeomR& g, float* sm,
-                                        const float* __restrict__ plane,
-                                        int H, int W, int ix, int iy) {
+  __device__ __forceinline__ void place(const GeomR& g, int H, int W, int ix,
+                                        int iy) {
     tw = min(g.tile, W);
     th = min(g.tile, H);
     ox = min(max(ix - kMargin, 0), W - tw);
     oy = min(max(iy - kMargin, 0), H - th);
-    for (int e = threadIdx.x; e < th * tw; e += kThreads) {
-      const int row = e / tw;
-      const int col = e - row * tw;
-      sm[row * g.ts + col] = __ldg(plane + (size_t)(oy + row) * W + ox + col);
+  }
+
+  // This thread's first element of the tile, as (row, col), and the step
+  // of kThreads elements.
+  __device__ __forceinline__ void walk(int& row, int& col, int& dr,
+                                       int& dc) const {
+    row = threadIdx.x / tw;
+    col = threadIdx.x - row * tw;
+    dr = kThreads / tw;
+    dc = kThreads - dr * tw;
+  }
+
+  __device__ __forceinline__ void step(int& row, int& col, int dr,
+                                       int dc) const {
+    row += dr;
+    col += dc;
+    if (col >= tw) {
+      col -= tw;
+      ++row;
+    }
+  }
+
+  // KT > 0: this thread's loads into registers.
+  __device__ __forceinline__ void load(const GeomR& g,
+                                       const float* __restrict__ plane, int H,
+                                       int W, int ix, int iy) {
+    place(g, H, W, ix, iy);
+    int row, col, dr, dc;
+    walk(row, col, dr, dc);
+#pragma unroll
+    for (int i = 0; i < kLoads; ++i) {
+      v[i] = row < th
+            ? __ldg(plane + (size_t)(oy + row) * W + (ox + col))
+            : 0.0f;  // runtime tile
+      step(row, col, dr, dc);
+    }
+  }
+
+  __device__ __forceinline__ void store(const GeomR& g, float* tile) const {
+    int row, col, dr, dc;
+    walk(row, col, dr, dc);
+#pragma unroll
+    for (int i = 0; i < kLoads; ++i) {
+      if (row < th) tile[row * g.ts + col] = v[i];
+      step(row, col, dr, dc);
+    }
+  }
+
+  // The wide windows: straight into shared memory, kBatch loads a thread
+  // in flight at a time (the caller publishes it with a barrier).
+  __device__ __forceinline__ void stage(const GeomR& g, float* tile,
+                                        const float* __restrict__ plane,
+                                        int H, int W, int ix, int iy) {
+    constexpr int kBatch = 8;
+    place(g, H, W, ix, iy);
+    int row, col, dr, dc;
+    walk(row, col, dr, dc);
+    for (int e = 0; e < th * tw; e += kBatch * kThreads) {
+      float b[kBatch];
+      const int row0 = row, col0 = col;
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) {
+        b[i] = row < th ? __ldg(plane + (size_t)(oy + row) * W + ox + col)
+                        : 0.0f;
+        step(row, col, dr, dc);
+      }
+      row = row0;
+      col = col0;
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) {
+        if (row < th) tile[row * g.ts + col] = b[i];
+        step(row, col, dr, dc);
+      }
     }
   }
 
@@ -848,21 +1009,42 @@ struct TileR {
   }
 };
 
-// lk_pyramid at a runtime window. The first kCache taps of each thread keep
-// their template values in registers; the others blend theirs again at
-// each use from the staged window (or from L2 when R = 0), so a thread
-// holds O(1) registers whatever the window. The ring's R coarsest levels
-// were issued by issue_ring; a level's slot is refilled with level
-// lvl - R as soon as the level ends.
-__device__ LkOut lk_pyramid_r(const GeomR& g, SmemR& sm, int R, Reducer& red,
-                              const PlanesR& P, int L, float px, float py,
-                              float flx, float fly, bool alive, int iters,
-                              float eps2) {
+// The gate and the inverse of the structure tensor (a, b; b, c), as
+// lk_pyramid computes them.
+struct Hessian {
+  float i00, i01, i11;
+  bool ok;
+  __device__ __forceinline__ Hessian(const float (&s)[3], float area) {
+    const float a = s[0], b = s[1], c = s[2];
+    const float det = a * c - b * b;
+    const float tr = a + c;
+    const float min_eig =
+        0.5f * (tr - sqrtf(fmaxf(tr * tr - 4.0f * det, 0.0f)));
+    ok = min_eig / area > 1e-4f;
+    const float inv_det = 1.0f / (det > 1e-12f ? det : 1.0f);
+    i00 = c * inv_det;
+    i01 = -b * inv_det;
+    i11 = a * inv_det;
+  }
+};
+
+// lk_pyramid at a runtime window with KT template taps a thread in
+// registers: each level's taps are blended once from its staged ring slot
+// (issue_ring issued the R coarsest levels; a slot is refilled with level
+// lvl - R as soon as every thread has blended from it). t0 receives this
+// thread's level-0 template taps (0 outside the window).
+template <int KT>
+__device__ LkOut lk_pyramid_kt(const GeomR& g, const TapsR<KT>& taps,
+                               SmemR& sm, int R, Reducer& red,
+                               const PlanesR& P, int L, float px, float py,
+                               float flx, float fly, bool alive, int iters,
+                               float eps2, float (&t0)[KT]) {
   const float area = (float)(g.win * g.win);
   const float r = (g.win - 1) / 2.0f;
+  const int nk = taps.n;
   bool ok = alive;
   float err = 0.0f;
-  TileR tile;
+  TileR<KT> tile;
 
   for (int lvl = L - 1; lvl >= 0; --lvl) {
     const int H = P.H[lvl];
@@ -875,66 +1057,141 @@ __device__ LkOut lk_pyramid_r(const GeomR& g, SmemR& sm, int R, Reducer& red,
 
     int ix, iy;
     float fx, fy;
-    // Every thread has read the last level's tile before its last barrier.
+    // The tile's loads go out before the wait for the templates.
     if (alive) {
       corner(plx + flx - r, ply + fly - r, hx, hy, ix, iy, fx, fy);
-      tile.stage(g, sm.tile, P.next[lvl], H, W, ix, iy);
+      tile.load(g, P.next[lvl], H, W, ix, iy);
     }
-    if (R > 0) wait_templates(min(R - 1, lvl));
-    __syncthreads();  // publishes the staged templates and the tile
+    wait_templates(min(R - 1, lvl));  // runtime ring
+    __syncthreads();
 
     corner(plx - r, ply - r, hx, hy, ix, iy, fx, fy);
-    Src T, TX, TY;
-    if (R > 0) {
-      const float* slot = sm.ring + (lvl % R) * g.level_floats() + (ix & 3);
-      T = Src{slot, g.ws};
-      TX = Src{slot + g.win_pix, g.ws};
-      TY = Src{slot + 2 * g.win_pix, g.ws};
-    } else {
-      const size_t o = (size_t)iy * W + ix;
-      T = Src{P.tmpl[lvl] + o, W};
-      TX = Src{P.gx[lvl] + o, W};
-      TY = Src{P.gy[lvl] + o, W};
-    }
-    TapWalk walk(g.win);
-    int crow[kCache], ccol[kCache];
-    float t[kCache], tx[kCache], ty[kCache];
+    const float* slot = sm.ring + (lvl % R) * g.level_floats() + (ix & 3);
+    float t[KT], tx[KT], ty[KT];
     float s[3] = {0.0f, 0.0f, 0.0f};
 #pragma unroll
-    for (int k = 0; k < kCache; ++k) {
-      crow[k] = walk.row;
-      ccol[k] = walk.col;
-      if (walk.on()) {
-        t[k] = T.at(walk.row, walk.col, fx, fy);
-        tx[k] = TX.at(walk.row, walk.col, fx, fy);
-        ty[k] = TY.at(walk.row, walk.col, fx, fy);
+    for (int k = 0; k < KT; ++k) {
+      if (k < nk) {
+        const float* o = slot + taps.win[k];
+        t[k] = blend(o, g.ws, fx, fy);
+        tx[k] = blend(o + g.win_pix, g.ws, fx, fy);
+        ty[k] = blend(o + 2 * g.win_pix, g.ws, fx, fy);
       } else {
         t[k] = tx[k] = ty[k] = 0.0f;
       }
       s[0] += tx[k] * tx[k];
       s[1] += tx[k] * ty[k];
       s[2] += ty[k] * ty[k];
-      walk.next();
     }
-    const TapWalk rest = walk;  // the taps past the cache
-    for (; walk.on(); walk.next()) {
-      const float gx = TX.at(walk.row, walk.col, fx, fy);
-      const float gy = TY.at(walk.row, walk.col, fx, fy);
+    if (lvl == 0) {
+#pragma unroll
+      for (int k = 0; k < KT; ++k) t0[k] = t[k];
+    }
+    if (alive) tile.store(g, sm.tile);
+    red.sum(s);  // its barrier also publishes the tile
+    // Every thread has blended from this level's slot: refill it with the
+    // next level the ring does not hold yet.
+    if (lvl - R >= 0) issue_level_r(g, sm.ring, R, P, lvl - R, px, py);
+    const Hessian h(s, area);
+    ok = ok && h.ok;
+
+    int it = 0;
+    float d2 = alive ? INFINITY : 0.0f;
+    float sabs = 0.0f;  // the last update's sum of |residual|
+    while (it < iters && d2 > eps2) {
+      corner(plx + flx - r, ply + fly - r, hx, hy, ix, iy, fx, fy);
+      if (!tile.holds(g, ix, iy)) {
+        // Every thread has read the old tile before the last barrier.
+        tile.load(g, P.next[lvl], H, W, ix, iy);
+        tile.store(g, sm.tile);
+        __syncthreads();
+      }
+      const float* base = sm.tile + (iy - tile.oy) * g.ts + (ix - tile.ox);
+      float q[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int k = 0; k < KT; ++k) {
+        if (k < nk) {  // iteration tap
+          const float diff = blend(base + taps.tile[k], g.ts, fx, fy) - t[k];
+          q[0] += diff * tx[k];
+          q[1] += diff * ty[k];
+          q[2] += fabsf(diff);
+        }
+      }
+      red.sum(q);
+      const float dx = -(h.i00 * q[0] + h.i01 * q[1]);
+      const float dy = -(h.i01 * q[0] + h.i11 * q[1]);
+      flx += dx;
+      fly += dy;
+      sabs = q[2];
+      d2 = dx * dx + dy * dy;
+      ++it;
+    }
+    err = sabs / area;
+    if (lvl > 0) {
+      flx *= 2.0f;
+      fly *= 2.0f;
+    }
+  }
+  return LkOut{flx, fly, err, ok && alive};
+}
+
+// lk_pyramid past 64: the blended templates of a level in shared memory,
+// t, gx, gy of tap j < nsh at T[j], T[nsh + j], T[2 nsh + j] (T =
+// sm.ring), each blended once at the level's start from the planes; the
+// taps from nsh on (kAll false: not all win^2 fit beside the tile) are
+// blended from the planes again at each use. Each thread touches only its
+// own taps there.
+template <bool kAll>
+__device__ LkOut lk_pyramid_wide(const GeomR& g, int nsh, SmemR& sm,
+                                 Reducer& red, const PlanesR& P, int L,
+                                 float px, float py, float flx, float fly,
+                                 bool alive, int iters, float eps2) {
+  const float area = (float)(g.win * g.win);
+  const float r = (g.win - 1) / 2.0f;
+  float* const T = sm.ring;
+  bool ok = alive;
+  float err = 0.0f;
+  TileR<kSharedT> tile;
+
+  for (int lvl = L - 1; lvl >= 0; --lvl) {
+    const int H = P.H[lvl];
+    const int W = P.W[lvl];
+    const float scale = ldexpf(1.0f, lvl);
+    const float plx = px / scale;
+    const float ply = py / scale;
+    const float hx = corner_limit_r(W, g.win);
+    const float hy = corner_limit_r(H, g.win);
+
+    int ix, iy;
+    float fx, fy;
+    // Every thread has read the last level's tile and templates before
+    // its last barrier.
+    if (alive) {
+      corner(plx + flx - r, ply + fly - r, hx, hy, ix, iy, fx, fy);
+      tile.stage(g, sm.tile, P.next[lvl], H, W, ix, iy);
+    }
+    corner(plx - r, ply - r, hx, hy, ix, iy, fx, fy);
+    const size_t o = (size_t)iy * W + ix;
+    const Src PT{P.tmpl[lvl] + o, W};
+    const Src PX{P.gx[lvl] + o, W};
+    const Src PY{P.gy[lvl] + o, W};
+    float s[3] = {0.0f, 0.0f, 0.0f};
+    for (TapWalk w(g.win); w.on(); w.next()) {
+      const float gx = PX.at(w.row, w.col, fx, fy);
+      const float gy = PY.at(w.row, w.col, fx, fy);
+      const int j = w.tap();
+      if (kAll || j < nsh) {
+        T[j] = PT.at(w.row, w.col, fx, fy);
+        T[nsh + j] = gx;
+        T[2 * nsh + j] = gy;
+      }
       s[0] += gx * gx;
       s[1] += gx * gy;
       s[2] += gy * gy;
     }
-    red.sum(s);
-    const float a = s[0], b = s[1], c = s[2];
-    const float det = a * c - b * b;
-    const float tr = a + c;
-    const float min_eig =
-        0.5f * (tr - sqrtf(fmaxf(tr * tr - 4.0f * det, 0.0f)));
-    ok = ok && (min_eig / area > 1e-4f);
-    const float inv_det = 1.0f / (det > 1e-12f ? det : 1.0f);
-    const float i00 = c * inv_det;
-    const float i01 = -b * inv_det;
-    const float i11 = a * inv_det;
+    red.sum(s);  // its barrier also publishes the tile
+    const Hessian h(s, area);
+    ok = ok && h.ok;
 
     int it = 0;
     float d2 = alive ? INFINITY : 0.0f;
@@ -950,25 +1207,26 @@ __device__ LkOut lk_pyramid_r(const GeomR& g, SmemR& sm, int R, Reducer& red,
       }
       const Src cur{sm.tile + (jy - tile.oy) * g.ts + (jx - tile.ox), g.ts};
       float q[3] = {0.0f, 0.0f, 0.0f};
-#pragma unroll
-      for (int k = 0; k < kCache; ++k) {
-        if (crow[k] < g.win) {
-          const float diff = cur.at(crow[k], ccol[k], gfx, gfy) - t[k];
-          q[0] += diff * tx[k];
-          q[1] += diff * ty[k];
-          q[2] += fabsf(diff);
+      for (TapWalk u(g.win); u.on(); u.next()) {
+        const int j = u.tap();
+        float t, gx, gy;
+        if (kAll || j < nsh) {
+          t = T[j];
+          gx = T[nsh + j];
+          gy = T[2 * nsh + j];
+        } else {
+          t = PT.at(u.row, u.col, fx, fy);
+          gx = PX.at(u.row, u.col, fx, fy);
+          gy = PY.at(u.row, u.col, fx, fy);
         }
-      }
-      for (TapWalk u = rest; u.on(); u.next()) {
-        const float diff = cur.at(u.row, u.col, gfx, gfy) -
-                           T.at(u.row, u.col, fx, fy);
-        q[0] += diff * TX.at(u.row, u.col, fx, fy);
-        q[1] += diff * TY.at(u.row, u.col, fx, fy);
+        const float diff = cur.at(u.row, u.col, gfx, gfy) - t;
+        q[0] += diff * gx;
+        q[1] += diff * gy;
         q[2] += fabsf(diff);
       }
       red.sum(q);
-      const float dx = -(i00 * q[0] + i01 * q[1]);
-      const float dy = -(i01 * q[0] + i11 * q[1]);
+      const float dx = -(h.i00 * q[0] + h.i01 * q[1]);
+      const float dy = -(h.i01 * q[0] + h.i11 * q[1]);
       flx += dx;
       fly += dy;
       sabs = q[2];
@@ -976,9 +1234,6 @@ __device__ LkOut lk_pyramid_r(const GeomR& g, SmemR& sm, int R, Reducer& red,
       ++it;
     }
     err = sabs / area;
-    // Every thread read this level's slot before the last barrier: refill
-    // it with the next level the ring does not hold yet.
-    if (R > 0 && lvl - R >= 0) issue_level_r(g, sm.ring, R, P, lvl - R, px, py);
     if (lvl > 0) {
       flx *= 2.0f;
       fly *= 2.0f;
@@ -987,22 +1242,169 @@ __device__ LkOut lk_pyramid_r(const GeomR& g, SmemR& sm, int R, Reducer& red,
   return LkOut{flx, fly, err, ok && alive};
 }
 
+// R: the ring's levels (KT > 0), or the taps whose blended templates lie
+// in shared memory (KT <= 0).
+template <int KT>
+__device__ __forceinline__ LkOut lk_pyramid_r(
+    const GeomR& g, const TapsR<KT>& taps, SmemR& sm, int R, Reducer& red,
+    const PlanesR& P, int L, float px, float py, float flx, float fly,
+    bool alive, int iters, float eps2, float (&t0)[regs(KT)]) {
+  if constexpr (KT > 0) {
+    return lk_pyramid_kt<KT>(g, taps, sm, R, red, P, L, px, py, flx, fly,
+                             alive, iters, eps2, t0);
+  } else {
+    return lk_pyramid_wide<KT == kSharedT>(g, R, sm, red, P, L, px, py, flx,
+                                           fly, alive, iters, eps2);
+  }
+}
+
+// Zero-mean NCC of two windows from this thread's KT taps of each (0
+// outside the window), as ncc_of_taps computes it.
+template <int KT>
+__device__ __forceinline__ float ncc_of_taps_r(Reducer& red, int nk,
+                                               float area,
+                                               const float (&ta)[KT],
+                                               const float (&tb)[KT]) {
+  float m[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int k = 0; k < KT; ++k) {
+    m[0] += ta[k];
+    m[1] += tb[k];
+  }
+  red.sum(m);
+  const float ma = m[0] / area;
+  const float mb = m[1] / area;
+  float s[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int k = 0; k < KT; ++k) {
+    if (k < nk) {
+      const float da = ta[k] - ma;
+      const float db = tb[k] - mb;
+      s[0] += da * da;
+      s[1] += db * db;
+      s[2] += da * db;
+    }
+  }
+  red.sum(s);
+  return s[2] * rsqrtf(s[0] * s[1] + 1e-12f);
+}
+
 // Zero-mean NCC of the level-0 windows of a at (pax, pay) and of b at
-// (pbx, pby), read from L2, as _ncc_kernel computes it.
+// (pbx, pby) (window centres) on [H, W] planes, as _ncc_kernel computes
+// it, for the windows past 64. A tap j < nkeep is blended once: the first
+// pass keeps it in keep[j] (b) and keep[nkeep + j] (a), shared memory,
+// each thread its own taps, and the second reads it there; the others are
+// blended from the planes again in the second pass. b_kept: the b
+// window's taps j < nkeep already lie in keep[j] (the fused kernel's
+// backward level-0 templates).
+__device__ float ncc_wide(const GeomR& g, Reducer& red, float* keep,
+                          int nkeep, bool b_kept,
+                          const float* __restrict__ a,
+                          const float* __restrict__ b, int H, int W,
+                          float pax, float pay, float pbx, float pby) {
+  const float area = (float)(g.win * g.win);
+  const CornerPair c(g, H, W, pax, pay, pbx, pby);
+  const float fxa = c.fxa, fya = c.fya, fxb = c.fxb, fyb = c.fyb;
+  const Src A{a + (size_t)c.ja * W + c.ia, W};
+  const Src B{b + (size_t)c.jb * W + c.ib, W};
+  float m[2] = {0.0f, 0.0f};
+  for (TapWalk w(g.win); w.on(); w.next()) {
+    const int j = w.tap();
+    const float va = A.at(w.row, w.col, fxa, fya);
+    float vb;
+    if (j < nkeep) {
+      vb = b_kept ? keep[j] : B.at(w.row, w.col, fxb, fyb);
+      keep[j] = vb;
+      keep[nkeep + j] = va;
+    } else {
+      vb = B.at(w.row, w.col, fxb, fyb);
+    }
+    m[0] += va;
+    m[1] += vb;
+  }
+  red.sum(m);
+  const float ma = m[0] / area;
+  const float mb = m[1] / area;
+  float s[3] = {0.0f, 0.0f, 0.0f};
+  for (TapWalk w(g.win); w.on(); w.next()) {
+    const int j = w.tap();
+    const bool kept = j < nkeep;
+    const float da = (kept ? keep[nkeep + j]
+                           : A.at(w.row, w.col, fxa, fya)) - ma;
+    const float db = (kept ? keep[j] : B.at(w.row, w.col, fxb, fyb)) - mb;
+    s[0] += da * da;
+    s[1] += db * db;
+    s[2] += da * db;
+  }
+  red.sum(s);
+  return s[2] * rsqrtf(s[0] * s[1] + 1e-12f);
+}
+
+// The fused kernel's NCC of the forward templates around pts and the
+// backward templates around the forward result: from the level-0 taps
+// the threads hold (KT > 0), or with ncc_wide past 64, where the backward
+// pass left the level-0 templates of its first R taps in shared memory.
+template <int KT>
+__device__ __forceinline__ float fused_ncc_r(
+    const GeomR& g, const TapsR<KT>& taps, SmemR& sm, int R, Reducer& red,
+    const PlanesR& fwd, float px, float py, float qx, float qy,
+    const float (&ta)[regs(KT)], const float (&tb)[regs(KT)]) {
+  if constexpr (KT > 0) {
+    return ncc_of_taps_r<KT>(red, taps.n, (float)(g.win * g.win), ta, tb);
+  } else {
+    return ncc_wide(g, red, sm.ring, R, true, fwd.tmpl[0], fwd.next[0],
+                    fwd.H[0], fwd.W[0], px, py, qx, qy);
+  }
+}
+
+// klt_pyramid_kernel at a runtime window: KT as above; R ring slots
+// (KT > 0) or shared template taps (KT <= 0); flow_out as kFlowOut there.
+template <int KT>
+__global__ void __launch_bounds__(kThreads)
+klt_pyramid_kernel_r(int win, int R, bool flow_out,
+                     const float* __restrict__ pts,
+                     const float* __restrict__ init_flow,
+                     const bool* __restrict__ valid, PlanesR P, int L,
+                     int iters, float eps2, float* __restrict__ pts_out,
+                     bool* __restrict__ ok_out, float* __restrict__ err_out) {
+  const GeomR g(win);
+  SmemR sm(g);
+  Reducer red{sm.red, 0};
+  const TapsR<KT> taps(g);
+  const int slot = blockIdx.x;
+  const float px = pts[2 * slot];
+  const float py = pts[2 * slot + 1];
+  float flx = 0.0f;
+  float fly = 0.0f;
+  if (init_flow != nullptr) {
+    const float coarse = flow_out ? 1.0f : ldexpf(1.0f, L - 1);
+    flx = init_flow[2 * slot] / coarse;
+    fly = init_flow[2 * slot + 1] / coarse;
+  }
+  if (KT > 0) issue_ring(g, sm.ring, R, P, L, px, py);
+  float t0[regs(KT)];
+  const LkOut o = lk_pyramid_r<KT>(g, taps, sm, R, red, P, L, px, py, flx,
+                                   fly, valid[slot], iters, eps2, t0);
+  if (threadIdx.x == 0) {
+    pts_out[2 * slot] = flow_out ? o.flx : px + o.flx;
+    pts_out[2 * slot + 1] = flow_out ? o.fly : py + o.fly;
+    ok_out[slot] = o.ok;
+    err_out[slot] = o.err;
+  }
+}
+
+// Zero-mean NCC of the level-0 windows of a at (pax, pay) and of b at
+// (pbx, pby) (window centres), read from L2 in two passes (the mean, then
+// the deviations), as _ncc_kernel computes it.
 __device__ float ncc_r(const GeomR& g, Reducer& red,
                        const float* __restrict__ a,
                        const float* __restrict__ b, int H, int W, float pax,
                        float pay, float pbx, float pby) {
   const float area = (float)(g.win * g.win);
-  const float r = (g.win - 1) / 2.0f;
-  const float hx = corner_limit_r(W, g.win);
-  const float hy = corner_limit_r(H, g.win);
-  int ia, ja, ib, jb;
-  float fxa, fya, fxb, fyb;
-  corner(pax - r, pay - r, hx, hy, ia, ja, fxa, fya);
-  corner(pbx - r, pby - r, hx, hy, ib, jb, fxb, fyb);
-  const Src A{a + (size_t)ja * W + ia, W};
-  const Src B{b + (size_t)jb * W + ib, W};
+  const CornerPair c(g, H, W, pax, pay, pbx, pby);
+  const float fxa = c.fxa, fya = c.fya, fxb = c.fxb, fyb = c.fyb;
+  const Src A{a + (size_t)c.ja * W + c.ia, W};
+  const Src B{b + (size_t)c.jb * W + c.ib, W};
   float m[2] = {0.0f, 0.0f};
   for (TapWalk w(g.win); w.on(); w.next()) {
     m[0] += A.at(w.row, w.col, fxa, fya);
@@ -1023,38 +1425,8 @@ __device__ float ncc_r(const GeomR& g, Reducer& red,
   return s[2] * rsqrtf(s[0] * s[1] + 1e-12f);
 }
 
-// klt_pyramid_kernel at a runtime window, R ring slots.
-template <bool kFlowOut>
-__global__ void __launch_bounds__(kThreads)
-klt_pyramid_kernel_r(int win, int R, const float* __restrict__ pts,
-                     const float* __restrict__ init_flow,
-                     const bool* __restrict__ valid, PlanesR P, int L,
-                     int iters, float eps2, float* __restrict__ pts_out,
-                     bool* __restrict__ ok_out, float* __restrict__ err_out) {
-  const GeomR g(win);
-  SmemR sm(g);
-  Reducer red{sm.red, 0};
-  const int slot = blockIdx.x;
-  const float px = pts[2 * slot];
-  const float py = pts[2 * slot + 1];
-  float flx = 0.0f;
-  float fly = 0.0f;
-  if (init_flow != nullptr) {
-    const float coarse = kFlowOut ? 1.0f : ldexpf(1.0f, L - 1);
-    flx = init_flow[2 * slot] / coarse;
-    fly = init_flow[2 * slot + 1] / coarse;
-  }
-  issue_ring(g, sm.ring, R, P, L, px, py);
-  const LkOut o = lk_pyramid_r(g, sm, R, red, P, L, px, py, flx, fly,
-                               valid[slot], iters, eps2);
-  if (threadIdx.x == 0) {
-    pts_out[2 * slot] = kFlowOut ? o.flx : px + o.flx;
-    pts_out[2 * slot + 1] = kFlowOut ? o.fly : py + o.fly;
-    ok_out[slot] = o.ok;
-    err_out[slot] = o.err;
-  }
-}
-
+// patch_ncc_kernel at a runtime window (no caller on the main path): one
+// body for every window, ncc_r.
 __global__ void __launch_bounds__(kThreads)
 patch_ncc_kernel_r(int win, const float* __restrict__ img_a,
                    const float* __restrict__ img_b, int H, int W,
@@ -1069,8 +1441,8 @@ patch_ncc_kernel_r(int win, const float* __restrict__ img_a,
   if (threadIdx.x == 0) out[slot] = ncc;
 }
 
-// klt_fb_ncc_kernel at a runtime window: the NCC reads its two level-0
-// windows from L2 (the ring has been refilled by then).
+// klt_fb_ncc_kernel at a runtime window: KT and R as klt_pyramid_kernel_r.
+template <int KT>
 __global__ void __launch_bounds__(kThreads)
 klt_fb_ncc_kernel_r(int win, int R, const float* __restrict__ pts,
                     const bool* __restrict__ valid, PlanesR fwd, PlanesR bwd,
@@ -1081,6 +1453,7 @@ klt_fb_ncc_kernel_r(int win, int R, const float* __restrict__ pts,
   const GeomR g(win);
   SmemR sm(g);
   Reducer red{sm.red, 0};
+  const TapsR<KT> taps(g);
   const int slot = blockIdx.x;
   const int H = fwd.H[0];
   const int W = fwd.W[0];
@@ -1088,25 +1461,26 @@ klt_fb_ncc_kernel_r(int win, int R, const float* __restrict__ pts,
   const float py = pts[2 * slot + 1];
   const bool alive = valid[slot];
 
-  issue_ring(g, sm.ring, R, fwd, L, px, py);
-  const LkOut f = lk_pyramid_r(g, sm, R, red, fwd, L, px, py, 0.0f, 0.0f,
-                               alive, iters, eps2);
+  if (KT > 0) issue_ring(g, sm.ring, R, fwd, L, px, py);
+  float ta[regs(KT)], tb[regs(KT)];
+  const LkOut f = lk_pyramid_r<KT>(g, taps, sm, R, red, fwd, L, px, py, 0.0f,
+                                   0.0f, alive, iters, eps2, ta);
   const float qx = px + f.flx;
   const float qy = py + f.fly;
   const bool fwd_ok = f.ok && post_filter(qx, qy, f.err, H, W) && alive;
 
   __syncthreads();  // the forward templates are read: reuse the ring
-  issue_ring(g, sm.ring, R, bwd, L, qx, qy);
+  if (KT > 0) issue_ring(g, sm.ring, R, bwd, L, qx, qy);
   const float coarse = ldexpf(1.0f, L - 1);
-  const LkOut b = lk_pyramid_r(g, sm, R, red, bwd, L, qx, qy,
-                               (px - qx) / coarse, (py - qy) / coarse,
-                               fwd_ok, iters, eps2);
+  const LkOut b = lk_pyramid_r<KT>(g, taps, sm, R, red, bwd, L, qx, qy,
+                                   (px - qx) / coarse, (py - qy) / coarse,
+                                   fwd_ok, iters, eps2, tb);
   const float bx = qx + b.flx;
   const float by = qy + b.fly;
   const bool bwd_ok = b.ok && post_filter(bx, by, b.err, H, W) && fwd_ok;
 
-  const float ncc = ncc_r(g, red, fwd.tmpl[0], fwd.next[0], H, W, px, py,
-                          qx, qy);
+  const float ncc = fused_ncc_r<KT>(g, taps, sm, R, red, fwd, px, py, qx,
+                                    qy, ta, tb);
   if (threadIdx.x == 0) {
     const float dx = bx - px;
     const float dy = by - py;
@@ -1119,9 +1493,36 @@ klt_fb_ncc_kernel_r(int win, int R, const float* __restrict__ pts,
   }
 }
 
+// Call f(std::integral_constant<int, KT>{}) with the compile-time KT that
+// equals kt (kKTs, kSharedT or kPartT).
+template <typename F>
+int with_kt(int kt, F&& f) {
+  using std::integral_constant;
+  switch (kt) {
+    case 1: return f(integral_constant<int, 1>{});
+    case 2: return f(integral_constant<int, 2>{});
+    case 4: return f(integral_constant<int, 4>{});
+    case 8: return f(integral_constant<int, 8>{});
+    case 16: return f(integral_constant<int, 16>{});
+    case kSharedT: return f(integral_constant<int, kSharedT>{});
+    default: return f(integral_constant<int, kPartT>{});
+  }
+}
+
 // The card's opt-in shared memory a block, per device, once the generic
 // kernels may use it (0 before).
 int g_smem_budget[64];
+
+// Let kernel fn take as dynamic shared memory all of the opt-in budget
+// its static shared memory leaves.
+template <typename K>
+cudaError_t allow_smem(K* fn, int optin) {
+  cudaFuncAttributes fa;
+  const cudaError_t e = cudaFuncGetAttributes(&fa, fn);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              optin - (int)fa.sharedSizeBytes);
+}
 
 // Let the generic kernels of the current device use the card's opt-in
 // shared memory (cudaFuncAttributeMaxDynamicSharedMemorySize), once per
@@ -1136,33 +1537,54 @@ int prepare_device(int* budget) {
     e = cudaDeviceGetAttribute(&optin,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (e != cudaSuccess) return (int)e;
-    const cudaFuncAttribute a = cudaFuncAttributeMaxDynamicSharedMemorySize;
-    if ((e = cudaFuncSetAttribute(klt_pyramid_kernel_r<false>, a, optin)) ||
-        (e = cudaFuncSetAttribute(klt_pyramid_kernel_r<true>, a, optin)) ||
-        (e = cudaFuncSetAttribute(klt_fb_ncc_kernel_r, a, optin)))
-      return (int)e;
+    for (int kt : {1, 2, 4, 8, 16, kSharedT, kPartT}) {
+      const int r = with_kt(kt, [&](auto k) {
+        constexpr int KT = decltype(k)::value;
+        cudaError_t x;
+        if ((x = allow_smem(klt_pyramid_kernel_r<KT>, optin)) ||
+            (x = allow_smem(klt_fb_ncc_kernel_r<KT>, optin)))
+          return (int)x;
+        return 0;
+      });
+      if (r) return r;
+    }
     g_smem_budget[dev] = optin;
   }
   *budget = g_smem_budget[dev];
   return 0;
 }
 
-// Dynamic shared memory and ring depth of a generic LK launch within
-// `budget` bytes: as many of the L levels as fit beside the tile (at most
-// kRing); none where not even one does, and the templates are read from
-// L2.
+// A generic LK launch's plan within `budget` bytes of shared memory: KT
+// template taps a thread in registers (the least of kKTs that covers the
+// window) with a ring of R staged levels, as many of the L levels as fit
+// beside the tile (at most kRing); past 64 (or where no level fits) the
+// blended templates of all win^2 taps in shared memory beside the tile
+// (kSharedT) or, where they do not fit, of R taps (kPartT).
 struct PlanR {
+  int kt;
   int R;
   size_t bytes;
 };
 
+int kt_for(int win) {
+  for (int kt : kKTs)
+    if (kThreads * kt >= win * win) return kt;
+  return kSharedT;
+}
+
 PlanR plan_r(int win, int L, long budget) {
   const GeomR g(win);
   const long fixed = 4L * (kRedFloats + g.tile_floats());
-  const long level = 4L * g.level_floats();
-  const long fit = budget > fixed ? (budget - fixed) / level : 0;
-  const int R = (int)std::min<long>(std::min(L, kRing), fit);
-  return PlanR{R, (size_t)(fixed + R * level)};
+  const long room = budget > fixed ? budget - fixed : 0;
+  const int kt = kt_for(win);
+  if (kt > 0) {
+    const long level = 4L * g.level_floats();
+    const int R = (int)std::min<long>(std::min(L, kRing), room / level);
+    if (R > 0) return PlanR{kt, R, (size_t)(fixed + R * level)};
+  }
+  const int taps = (int)std::min<long>((long)win * win, room / 12);
+  return PlanR{taps == win * win ? kSharedT : kPartT, taps,
+               (size_t)(fixed + 12L * taps)};
 }
 
 bool win_ok(int win) { return win >= 1 && win <= kMaxWin; }
@@ -1229,12 +1651,16 @@ int vins_klt_pyramid(const void* pts, const void* init_flow,
   int budget = 0;
   if (const int e = prepare_device(&budget)) return e;
   const PlanR pr = plan_r(win, L, budget);
-  klt_pyramid_kernel_r<false><<<M, kThreads, pr.bytes, s>>>(
-      win, pr.R, static_cast<const float*>(pts),
-      static_cast<const float*>(init_flow), static_cast<const bool*>(valid),
-      P, L, iters, eps2, static_cast<float*>(pts_out),
-      static_cast<bool*>(ok_out), static_cast<float*>(err_out));
-  return (int)cudaGetLastError();
+  return with_kt(pr.kt, [&](auto k) {
+    klt_pyramid_kernel_r<decltype(k)::value>
+        <<<M, kThreads, pr.bytes, s>>>(
+            win, pr.R, false, static_cast<const float*>(pts),
+            static_cast<const float*>(init_flow),
+            static_cast<const bool*>(valid), P, L, iters, eps2,
+            static_cast<float*>(pts_out), static_cast<bool*>(ok_out),
+            static_cast<float*>(err_out));
+    return (int)cudaGetLastError();
+  });
 }
 
 // K4: one level. prev, gx, gy, next: [H, W] f32; pts, guess (may be
@@ -1268,12 +1694,16 @@ int vins_klt_level(const void* prev, const void* gx, const void* gy,
   int budget = 0;
   if (const int e = prepare_device(&budget)) return e;
   const PlanR pr = plan_r(win, 1, budget);
-  klt_pyramid_kernel_r<true><<<M, kThreads, pr.bytes, s>>>(
-      win, pr.R, static_cast<const float*>(pts),
-      static_cast<const float*>(guess), static_cast<const bool*>(valid), P,
-      1, iters, eps2, static_cast<float*>(flow_out),
-      static_cast<bool*>(ok_out), static_cast<float*>(err_out));
-  return (int)cudaGetLastError();
+  return with_kt(pr.kt, [&](auto k) {
+    klt_pyramid_kernel_r<decltype(k)::value>
+        <<<M, kThreads, pr.bytes, s>>>(
+            win, pr.R, true, static_cast<const float*>(pts),
+            static_cast<const float*>(guess),
+            static_cast<const bool*>(valid), P, 1, iters, eps2,
+            static_cast<float*>(flow_out), static_cast<bool*>(ok_out),
+            static_cast<float*>(err_out));
+    return (int)cudaGetLastError();
+  });
 }
 
 // img_a, img_b: [H, W] f32; pts_a, pts_b: [M, 2] f32; 1 <= win <= 128;
@@ -1289,13 +1719,12 @@ int vins_patch_ncc(const void* img_a, const void* img_b, int H, int W,
         static_cast<const float*>(img_a), static_cast<const float*>(img_b),
         H, W, static_cast<const float*>(pts_a),
         static_cast<const float*>(pts_b), static_cast<float*>(out));
-  } else {
-    patch_ncc_kernel_r<<<M, kThreads, 0, s>>>(
-        win, static_cast<const float*>(img_a),
-        static_cast<const float*>(img_b), H, W,
-        static_cast<const float*>(pts_a), static_cast<const float*>(pts_b),
-        static_cast<float*>(out));
+    return (int)cudaGetLastError();
   }
+  patch_ncc_kernel_r<<<M, kThreads, 0, s>>>(
+      win, static_cast<const float*>(img_a), static_cast<const float*>(img_b),
+      H, W, static_cast<const float*>(pts_a), static_cast<const float*>(pts_b),
+      static_cast<float*>(out));
   return (int)cudaGetLastError();
 }
 
@@ -1335,22 +1764,30 @@ int vins_klt_fb_ncc(const void* pts, const void* valid, const void* planes,
   int budget = 0;
   if (const int e = prepare_device(&budget)) return e;
   const PlanR pr = plan_r(win, L, budget);
-  klt_fb_ncc_kernel_r<<<M, kThreads, pr.bytes, s>>>(
-      win, pr.R, static_cast<const float*>(pts),
-      static_cast<const bool*>(valid), fwd, bwd, L, iters, eps2, fb_thresh,
-      ncc_min, static_cast<float*>(fwd_pts), static_cast<bool*>(status),
-      static_cast<float*>(err), static_cast<float*>(ncc));
-  return (int)cudaGetLastError();
+  return with_kt(pr.kt, [&](auto k) {
+    klt_fb_ncc_kernel_r<decltype(k)::value><<<M, kThreads, pr.bytes, s>>>(
+        win, pr.R, static_cast<const float*>(pts),
+        static_cast<const bool*>(valid), fwd, bwd, L, iters, eps2, fb_thresh,
+        ncc_min, static_cast<float*>(fwd_pts), static_cast<bool*>(status),
+        static_cast<float*>(err), static_cast<float*>(ncc));
+    return (int)cudaGetLastError();
+  });
 }
 
-// The ring depth and dynamic shared memory a generic launch at (win, L)
-// takes on the current device (for reports; 0 levels: templates from L2).
-int vins_klt_plan(int win, int L, void* ring_out, void* bytes_out) {
+// The plan of a generic LK launch at (win, L) on the current device, for
+// reports: the template taps a thread holds in registers (kt; 0: the
+// blended templates lie in shared memory), the levels staged in its ring
+// (kt > 0) or the taps whose templates shared memory holds (kt = 0; the
+// rest are blended from L2 at each use), and its dynamic shared memory in
+// bytes.
+int vins_klt_plan(int win, int L, void* kt_out, void* ring_out,
+                  void* bytes_out) {
   if (!win_ok(win) || L < 1 || L > kMaxLevelsR)
     return (int)cudaErrorInvalidValue;
   int budget = 0;
   if (const int e = prepare_device(&budget)) return e;
   const PlanR pr = plan_r(win, L, budget);
+  *static_cast<int*>(kt_out) = pr.kt;
   *static_cast<int*>(ring_out) = pr.R;
   *static_cast<long long*>(bytes_out) = (long long)pr.bytes;
   return 0;

@@ -30,7 +30,7 @@ Each CUDA wrapper counts its launches in a plain integer attribute
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -256,18 +256,35 @@ def _check_level_shape(lvl: int, H: int, W: int, win: int) -> None:
                          f"{win + 2}x{win + 2} pixels")
 
 
-def generic_plan(win: int, L: int) -> Tuple[int, int]:
-    """On the card: how many of L levels the runtime-window kernels stage
-    in shared memory at window win (0: they read the templates from L2)
-    and the dynamic shared memory of such a launch, in bytes. The 21x21
-    window at up to 4 levels takes the specialization instead."""
+class GenericPlan(NamedTuple):
+    """How a runtime-window launch runs (klt.cu's plan_r). Up to window 64
+    each of its 256 threads holds taps_per_thread template taps in
+    registers (1, 2, 4, 8 or 16: the least that covers win^2) and
+    ring_levels of the L levels are staged in shared memory at a time;
+    past 64 the blended templates of shared_taps of the win^2 taps lie in
+    shared memory: all of them (taps_per_thread 0; up to window 113 on an
+    H100) or as many as fit beside the next-frame tile (-1), the rest
+    blended from L2 at each use. smem_bytes: the launch's dynamic shared
+    memory."""
+    taps_per_thread: int
+    ring_levels: int
+    shared_taps: int
+    smem_bytes: int
+
+
+def generic_plan(win: int, L: int) -> GenericPlan:
+    """On the card: the plan of the runtime-window kernels at window win
+    and L levels. The 21x21 window at up to 4 levels takes the
+    specialization instead."""
     _check_win(win)
     _check_levels(L)
-    ring, nbytes = ctypes.c_int(), ctypes.c_longlong()
+    kt, r, nbytes = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
     native.check(native.library().vins_klt_plan(
-        win, L, ctypes.addressof(ring), ctypes.addressof(nbytes)),
-        "vins_klt_plan")
-    return ring.value, nbytes.value
+        win, L, ctypes.addressof(kt), ctypes.addressof(r),
+        ctypes.addressof(nbytes)), "vins_klt_plan")
+    regs = kt.value > 0
+    return GenericPlan(kt.value, r.value if regs else 0,
+                       0 if regs else r.value, nbytes.value)
 
 
 def _track_pyramid_cuda(pyr_prev, grads, pyr_next, pts_prev, valid,

@@ -24,8 +24,14 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libvins_kernels.so")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+# --split-compile=0 (the front end's optimizer) and -Xptxas
+# --split-compile=0 (ptxas) spread a source's kernels over every core:
+# klt.cu compiles its runtime-window kernels once for each count of taps
+# a thread holds, and is the build's longest source (chip_smoke.py prints
+# the build's seconds).
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
-                           "-Xptxas", "-v"]
+                           "--split-compile=0", "-Xptxas",
+                           "--split-compile=0", "-Xptxas", "-v"]
 
 _VP = ctypes.c_void_p
 _ARGTYPES = {
@@ -50,8 +56,8 @@ _ARGTYPES = {
                         _VP],
     # (no arguments): the runtime-window kernels' shared-memory opt-in
     "vins_klt_init": [],
-    # win, L, ring_out (int*), bytes_out (long long*)
-    "vins_klt_plan": [ctypes.c_int, ctypes.c_int, _VP, _VP],
+    # win, L, kt_out (int*), ring_out (int*), bytes_out (long long*)
+    "vins_klt_plan": [ctypes.c_int, ctypes.c_int, _VP, _VP, _VP],
     # img, H, W, pts, N, win, out, stream
     "vins_extract_patches": [_VP, ctypes.c_int, ctypes.c_int, _VP,
                              ctypes.c_int, ctypes.c_int, _VP, _VP],
