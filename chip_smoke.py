@@ -37,7 +37,9 @@ Phases (any failure exits non-zero, and no result line is printed):
                 640x480 frames and slots (flow within 1e-3 px; K2's NCC,
                 and klt_fb_ncc's at its own tracked points, within 1e-5),
                 and K3's patch entry at windows 11 and 49 on 512
-                keypoints (bit for bit);
+                keypoints (bit for bit), beside its library yardstick,
+                one grid_sample call (within LIBRARY_TOL, timed as
+                library_ms);
   4. loop     — (in a spawned child process, with phase 11 after it,
                 alongside phases 5-10 in
                 this one, which runs 8, 9 and 10 first, then 5-7, so that the
@@ -307,6 +309,9 @@ DOMAIN_PATH = (15, 5)
 NCC_TOL_DOMAIN = 1e-5
 PATCH_WINS = (11, 49)
 N_PATCHES = 512
+# grid_sample against the plain patches: it rounds the sample point
+# otherwise (ops/brief_cuda.extract_patches_grid_sample).
+LIBRARY_TOL = 1e-5
 N_FRAMES_DOMAIN = 96
 OK_AGREE = 0.99
 FB_THRESH = 0.3         # ops/klt.track_pyramid_fb's round-trip bound, px
@@ -779,7 +784,8 @@ KLT_SRC = "vins_tpu_torch/csrc/klt.cu"
 BRIEF_SRC = "vins_tpu_torch/csrc/brief.cu"
 
 
-def _entry(name, source, replaces, err, t, plain_ms, bound, **extra):
+def _entry(name, source, replaces, err, t, plain_ms, bound,
+           library_ms=None, **extra):
     """One kernel's record on the `kernels` line (launches filled in
     after the system runs)."""
     return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -787,7 +793,7 @@ def _entry(name, source, replaces, err, t, plain_ms, bound, **extra):
                 profiler_ms=t["profiler_ms"], plain_ms=plain_ms,
                 bound_ms=bound["bound_ms"], bound_us=bound["bound_us"],
                 bound_by=bound["bound_by"], bound_bytes=bound["bytes"],
-                bound_operations=bound["operations"], library_ms=None,
+                bound_operations=bound["operations"], library_ms=library_ms,
                 **extra)
 
 
@@ -1164,7 +1170,8 @@ def domain_kernel_phase(cfg, device) -> list:
     keypoints of the blurred frame (border keypoints included); each
     against its plain version (flow to FLOW_TOL, NCC to NCC_TOL_DOMAIN,
     patches bit for bit), with its device, call and plain times and its
-    bound."""
+    bound; the patches also against one grid_sample call (LIBRARY_TOL),
+    whose device time is the entry's library_ms."""
     from vins_tpu_torch.ops import brief_cuda, klt, klt_cuda
 
     fe = cfg.frontend
@@ -1233,21 +1240,33 @@ def domain_kernel_phase(cfg, device) -> list:
         if n_diff:
             _fail(f"K3 patches at {win}x{win}: {n_diff} of {p_k.numel()} "
                   f"values differ from the plain version")
+        # The library yardstick: one grid_sample call on points built
+        # beforehand, as the kernel's are.
+        grid = brief_cuda.patch_grid(blurred, kp, win)
+        library = lambda: brief_cuda.extract_patches_grid_sample(
+            blurred, kp, win, grid)
+        lib_err = float((library() - p_p).abs().max())
+        if not lib_err <= LIBRARY_TOL:
+            _fail(f"K3 patches at {win}x{win}: grid_sample differs from "
+                  f"the plain version by {lib_err:.3g} (> {LIBRARY_TOL})")
         t = _timed(lambda: brief_cuda.extract_patches(blurred, kp, win),
                    "patches_kernel")
         ms_p = _call_ms(lambda: brief_cuda.extract_patches_plain(
             blurred, kp, win))
+        ms_lib = _device_ms(library)
         # Every keypoint's window of the frame, overlaps once, and every
         # patch written.
         b = _bound(_window_pixels(blurred, kp, win) * 4.0 + N_PATCHES * 8
                    + N_PATCHES * win * win * 4,
                    N_PATCHES * win * win * TAP_OPS)
         print(f"K3 extract_patches@{win}x{win} N={N_PATCHES}: patches "
-              f"identical; {_ms_text(t)} vs plain {ms_p:.4f} ms, bound "
+              f"identical; {_ms_text(t)} vs plain {ms_p:.4f} ms, "
+              f"grid_sample {ms_lib:.4f} ms (err {lib_err:.3g}), bound "
               f"{b['bound_us']:.3f} us ({b['bound_by']})")
         rows.append(_entry(f"extract_patches@{win}x{win}", BRIEF_SRC,
                            "vins_tpu/ops/klt_pallas.py:344", 0.0, t, ms_p,
-                           b, win=win, on_main_path=False))
+                           b, library_ms=ms_lib, library_err=lib_err,
+                           win=win, on_main_path=False))
     return rows
 
 

@@ -10,7 +10,9 @@ interpret mode composed with the TPU branch's one-hot product at every
 keypoint, and against the JAX CPU branch for keypoints inside the border.
 From the raw frame, extract_brief runs the kernel's raw-frame entry
 (the blur fused in); its plain version is held against the JAX TPU
-branch from the same raw frame.
+branch from the same raw frame. K3's patch entry: its library yardstick
+(one grid_sample call) against the plain patches on the CPU, and the
+entry against its plain version across its window domain on the card.
 """
 from types import SimpleNamespace
 
@@ -107,6 +109,27 @@ def test_plain_patches_match_pallas_interpret(jx):
         torch.as_tensor(blurred), torch.as_tensor(pts)).numpy()
     assert got.shape == ref.shape == (N, 49, 49)
     np.testing.assert_allclose(got, ref, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("win", [11, 49, 128])
+def test_grid_sample_patches_match_plain(win):
+    """The patch entry's library yardstick, one F.grid_sample call on
+    patch_grid's points, computes the patches of extract_patches_plain:
+    within 1e-5 on a blurred frame, border keypoints and a NaN keypoint
+    included. grid_sample unnormalizes the sample point from 2x/(W-1) - 1
+    and weighs the four pixels at once, so the two differ in rounding
+    only."""
+    rng = np.random.default_rng(40 + win)
+    h, w = 160, 200
+    img = _port_blur(rng.uniform(0, 1, (h, w)).astype(np.float32))
+    pts = rng.uniform(0, [w, h], (N, 2)).astype(np.float32)
+    pts[:7] = [[0, 0], [w - 1, h - 1], [3.5, h - 2], [w - 5, 2.25],
+               [24.5, h / 2], [w / 2, h - 24.75], [np.nan, 40]]
+    pts = torch.as_tensor(pts)
+    ref = brief_cuda.extract_patches_plain(img, pts, win)
+    got = brief_cuda.extract_patches_grid_sample(img, pts, win)
+    assert got.shape == ref.shape == (N, win, win)
+    assert float((got - ref).abs().max()) <= 1e-5
 
 
 def test_brief_words_match_tpu_branch_bit_for_bit(jx):
@@ -398,3 +421,49 @@ def test_brief_raw_kernel_on_card():
         assert brief_cuda.extract_brief_words.launches == w0
         assert torch.equal(got, brief_cuda.extract_brief_raw_plain(img,
                                                                    *rest))
+
+
+# The card's patch-entry windows: every 16-byte phase of a row and of
+# win * win around the widths where a warp or a 32-byte sector of a row
+# fills; both sides of each edge between the entry's two bodies (40 / 41,
+# 87 / 88 / 89) and of the strips' bands (64 / 65); the direct body's odd
+# windows up to its last (41 ... 87); the BRIEF patch and the largest
+# window.
+PATCH_CARD_WINS = (1, 2, 3, 4, 11, 16, 17, 31, 32, 33, 40, 41, 49, 63, 64,
+                   65, 77, 87, 88, 89, 113, 127, 128)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("win", PATCH_CARD_WINS)
+def test_patches_kernel_on_card(win):
+    """On a CUDA card: K3's patch entry equals extract_patches_plain bit
+    for bit at window win, for N = 0, 1, 3 and 512 keypoints (border
+    keypoints and a NaN one among the first eight), on a frame whose width
+    is a multiple of 4, one whose width is not, and one whose base is only
+    4-byte aligned (a contiguous view at storage offset 1); each call with
+    N > 0 counts one launch, N = 0 none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(win)
+    h, w4 = win + 18, (win + 40) // 4 * 4
+    frame = lambda w: torch.as_tensor(
+        rng.uniform(0, 1, (h, w)).astype(np.float32), device=dev)
+    flat = torch.empty(h * w4 + 1, device=dev)
+    shifted = flat[1:].view(h, w4).copy_(frame(w4))
+    assert shifted.data_ptr() % 16 != 0 and shifted.is_contiguous()
+    for img in (frame(w4), frame(w4 + 3), shifted):
+        H, W = img.shape
+        pts = rng.uniform(0, [W, H], (512, 2)).astype(np.float32)
+        pts[:8] = [[0, 0], [W - 1, H - 1], [np.nan, H / 2], [3.25, H - 2.5],
+                   [W - 20.5, 4.75], [W - 1.0, H / 3], [0.5, H - 24.9],
+                   [W / 2, 2.25]]
+        for n in (0, 1, 3, 512):
+            p = torch.as_tensor(pts[:n], device=dev)
+            n0 = brief_cuda.extract_patches.launches
+            got = brief_cuda.extract_patches(img, p, win)
+            torch.cuda.synchronize()
+            assert brief_cuda.extract_patches.launches == n0 + (n > 0)
+            assert got.shape == (n, win, win)
+            assert torch.equal(got, brief_cuda.extract_patches_plain(
+                img, p, win)), (W, n)

@@ -9,7 +9,7 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GPU_TESTS = {"test_kernels_on_card", "test_brief_kernel_on_card",
-             "test_brief_raw_kernel_on_card",
+             "test_brief_raw_kernel_on_card", "test_patches_kernel_on_card",
              "test_runtime_window_kernels_on_card"}
 
 
@@ -38,7 +38,8 @@ def _collect(pythonpath):
 def test_card_tests_collect_without_jax(tmp_path):
     """A `jax` package that raises on import, first on the path: the
     collection still succeeds, and holds every gpu case and nothing else
-    (1 in test_torch_klt.py, 2 in test_torch_brief.py, one per point of
+    (1 in test_torch_klt.py, 2 in test_torch_brief.py and one per window
+    of its PATCH_CARD_WINS, one per point of
     test_torch_klt_domain.CARD_POINTS)."""
     stub = tmp_path / "jax"
     stub.mkdir()
@@ -53,5 +54,10 @@ def test_card_tests_collect_without_jax(tmp_path):
     assert ids == ids_jax
     domain = _module("card_points", os.path.join(
         ROOT, "tests", "test_torch_klt_domain.py"))
+    brief = _module("patch_wins", os.path.join(
+        ROOT, "tests", "test_torch_brief.py"))
     n_domain = sum("test_torch_klt_domain.py" in i for i in ids)
-    assert n_domain == len(domain.CARD_POINTS) and len(ids) == 3 + n_domain
+    n_brief = sum("test_torch_brief.py" in i for i in ids)
+    assert n_domain == len(domain.CARD_POINTS)
+    assert n_brief == 2 + len(brief.PATCH_CARD_WINS)
+    assert len(ids) == 1 + n_brief + n_domain

@@ -1,4 +1,5 @@
-"""The tracking kernels of two source trees, timed in turns on one card.
+"""The tracking kernels and K3 of two source trees, timed in turns on one
+card.
 
     python3 tools/torch_klt_turns.py DIR_A DIR_B     (from the repo root)
 
@@ -13,9 +14,11 @@ DOMAIN_POINTS (the runtime-window variant), of klt_fb_ncc at windows 20,
 21 (the specialization) and 22 at 3 levels, and of klt_fb_ncc, K1, K4 and
 K2 at the main path's (21, 3), and of klt_fb_ncc and K1 at windows 114
 (2 levels) and 128 (1 level), whose templates pass what shared memory
-holds beside the tile. Prints one JSON line a turn and then the
-mean of each tree's two turns and B / A. Needs a card; imports nothing of
-JAX.
+holds beside the tile; and, on chip_smoke.brief_inputs' 640x480 frame at
+N = 512 keypoints, of K3's patch entry (`extract_patches`) at windows
+PATCH_WINS and of the main path's BRIEF entry from the raw frame
+(`brief_raw_words`). Prints one JSON line a turn and then the mean of each
+tree's two turns and B / A. Needs a card; imports nothing of JAX.
 """
 import json
 import os
@@ -27,6 +30,7 @@ SAME_POINT = (20, 21, 22)
 # Windows past 64 with templates past what shared memory holds beside the
 # tile: klt_fb_ncc and K1 only.
 WIDE_POINTS = ((114, 2), (128, 1))
+PATCH_WINS = (11, 49, 128)
 
 
 def _measure(tree: str) -> dict:
@@ -35,7 +39,8 @@ def _measure(tree: str) -> dict:
 
     import chip_smoke as c
     from vins_tpu_torch import default_config
-    from vins_tpu_torch.ops import klt, klt_cuda, native
+    from vins_tpu_torch.ops import brief, brief_cuda, image, klt, klt_cuda
+    from vins_tpu_torch.ops import native
 
     native.library()
     dev = torch.device("cuda", 0)
@@ -68,6 +73,14 @@ def _measure(tree: str) -> dict:
                                              win, ITERS, EPS))
             out["patch_ncc@" + tag] = c._device_ms(
                 lambda: klt_cuda.patch_ncc(pyr0[0], pyr1[0], pts, p_k, win))
+    raw = c.frame_pair(cfg, dev)[-1]
+    blurred, kp, kv = c.brief_inputs(raw, c.N_PATCHES, dev)
+    for win in PATCH_WINS:
+        out[f"extract_patches@{win}"] = c._device_ms(
+            lambda: brief_cuda.extract_patches(blurred, kp, win))
+    pattern, taps = brief.pattern_tensor(dev), image.gaussian_taps(2.0)
+    out[f"brief_raw_words@{c.N_PATCHES}"] = c._device_ms(
+        lambda: brief_cuda.extract_brief_raw(raw, kp, kv, pattern, taps))
     return dict(tree=tree, card=c._card_line(), ms=out)
 
 

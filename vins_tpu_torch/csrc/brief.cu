@@ -1,7 +1,7 @@
 // BRIEF words of keypoints (K3) for Hopper (sm_90a): from the raw frame,
 // the Gaussian blur fused in, or from a frame blurred beforehand; and the
-// patch entry, K3's own [N, win, win] output at any window (below, before
-// the launchers).
+// patch entry, K3's own [N, win, win] output at any window (its layout
+// after the BRIEF entries' below; its kernel before the launchers).
 //
 // Replaces the Pallas TPU kernel _patches_kernel (vins_tpu/ops/
 // klt_pallas.py:329), called through extract_patches_pallas (:358) by
@@ -75,6 +75,25 @@
 // blurred-input entry 12,016 B, both 31 registers a thread; with 256
 // threads a block, 8 blocks fit an SM (by threads), so every block of
 // N = 512 is resident in one wave on 132 SMs.
+//
+// The patch entry (patches_kernel, vins_extract_patches) writes every tap:
+// [N, win, win] floats, 4.9 MB at N = 512 and window 49, 33.6 MB at 128,
+// and reads each keypoint's (win + 1)^2 window, about as many bytes again
+// from L2 (the windows of nearby keypoints overlap; the frame itself is
+// 1.2 MB). It is bound by those bytes and by latency: the pts load, then
+// the pixels, then the stores. Two bodies by window, chosen in turns on
+// the card (patch_direct below): one output a thread step, its four
+// pixels read from the frame through L1; or a column a thread over strips
+// of rows, the horizontal blend carried in a register, the rows split over
+// up to 4 blocks a keypoint past window 64. Neither stages the window in
+// shared memory: L1 already serves the pixels that neighbouring lanes
+// share, and a staged body (cp.async, the horizontal pass in shared
+// memory, 16-byte stores) was no faster at window 49 and 5-11% faster
+// at 57-81, too little for its code (PERF.md section 6).
+// Resources (nvcc -Xptxas -v): both bodies 32 registers a thread, no
+// spills, no shared memory, no barrier; with 256 threads a block, 8
+// blocks fit an SM, so every block of N = 512 at window 49 is resident in
+// one wave on 132 SMs.
 //
 // Built by vins_tpu_torch/ops/native.py (nvcc -gencode
 // arch=compute_90a,code=sm_90a) and bound with ctypes: the extern "C"
@@ -162,14 +181,17 @@ __device__ __forceinline__ float blur5(const float* x, int s,
   return acc;
 }
 
-// The bilinear tap at p (top-left pixel) in rows of `stride` floats.
+// g * a + f * b, each step rounded: one axis of the bilinear blend.
+__device__ __forceinline__ float lerp2(float g, float f, float a, float b) {
+  return __fadd_rn(__fmul_rn(g, a), __fmul_rn(f, b));
+}
+
+// The bilinear tap at p (top-left pixel) in rows of `stride` floats: the
+// blend along x of the two rows, then along y, in that order.
 __device__ __forceinline__ float tap(const float* p, int stride, float fx,
                                      float fy, float gx, float gy) {
-  const float top = __fmul_rn(gy, __fadd_rn(__fmul_rn(gx, p[0]),
-                                            __fmul_rn(fx, p[1])));
-  const float bot = __fmul_rn(fy, __fadd_rn(__fmul_rn(gx, p[stride]),
-                                            __fmul_rn(fx, p[stride + 1])));
-  return __fadd_rn(top, bot);
+  return lerp2(gy, fy, lerp2(gx, fx, p[0], p[1]),
+               lerp2(gx, fx, p[stride], p[stride + 1]));
 }
 
 template <bool kBlur>
@@ -241,17 +263,48 @@ brief_words_kernel(const float* __restrict__ img, int H, int W,
   if ((k & 31) == 0) words[i * (kBits / 32) + (k >> 5)] = (int)word;
 }
 
-// The [win, win] patch of keypoint i (extract_patches_pallas's output):
-// the corner clamped once, as above, each tap the same rounded blend as
-// `tap`, so the patches equal extract_patches_plain bit for bit. One block
-// of kBits threads a keypoint, each thread its taps j = threadIdx.x +
-// kBits * k, read from L2: a patch is written once and read by nothing
-// else in the launch, so staging it would only add a barrier.
-__global__ void __launch_bounds__(kBits)
+// The patch entry: the [win, win] patch of keypoint i
+// (extract_patches_pallas's output), the corner clamped once, as above,
+// its pixels read from the frame through L1 and each tap rounded as `tap`
+// rounds it, so the patches equal extract_patches_plain bit for bit. One
+// block of kPatchThreads threads a keypoint, or a band of its rows, in one
+// of two bodies by window (patch_direct):
+// - direct: one output a thread step over the flat [win * win] patch,
+//   running row and column counters in place of a division a tap, the
+//   tap's four pixels read from the frame: two dependent loads, pts then
+//   pixels, and no barrier;
+// - strips: thread t blends column c = t % win of a strip of rows,
+//   walking down them, the horizontal blend of the row below carried in a
+//   register: h[r][c] = gx * p[r][c] + fx * p[r][c + 1], then out[r][c] =
+//   gy * h[r][c] + fy * h[r + 1][c], the roundings of `tap` in its order
+//   (6 rounded operations an output, not 9). Lanes c and c + 1 share
+//   their lines, so a row of the window leaves L2 once a strip. The rows
+//   are split into strip_bands(win) bands, one block each.
+constexpr int kPatchThreads = 256;
+constexpr int kStripRows = 16;  // rows a strip holds at most
+
+// The direct body at every window up to 40 and, up to 88, where a row of
+// the patch ends inside a 32-byte sector (win % 8 != 0); the strips
+// otherwise (chosen in turns on the card, PERF.md section 6).
+__host__ __device__ constexpr bool patch_direct(int win) {
+  return win <= 40 || (win <= 88 && win % 8 != 0);
+}
+
+// The strips' blocks a keypoint: the rows split into bands, one block a
+// band, so that no strip holds more than kStripRows rows (1 band up to
+// window 64, 4 at 128).
+__host__ __device__ constexpr int strip_bands(int win) {
+  return ((win + kPatchThreads / win - 1) / (kPatchThreads / win)
+          + kStripRows - 1) / kStripRows;
+}
+
+template <bool kDirect>
+__global__ void __launch_bounds__(kPatchThreads)
 patches_kernel(const float* __restrict__ img, int H, int W,
                const float* __restrict__ pts, int win,
                float* __restrict__ out) {
   const int i = blockIdx.x;
+  const int t = threadIdx.x;
   const float r = (win - 1) / 2.0f;
   const float hx = (float)((double)(W - win) - 1.001);
   const float hy = (float)((double)(H - win) - 1.001);
@@ -259,16 +312,47 @@ patches_kernel(const float* __restrict__ img, int H, int W,
   const float cy = fminf(fmaxf(__fsub_rn(pts[2 * i + 1], r), 0.0f), hy);
   const float flx = floorf(cx);
   const float fly = floorf(cy);
+  const int x0 = (int)flx;
+  const int y0 = (int)fly;
   const float fx = __fsub_rn(cx, flx);
   const float fy = __fsub_rn(cy, fly);
   const float gx = __fsub_rn(1.0f, fx);
   const float gy = __fsub_rn(1.0f, fy);
-  const float* base = img + (size_t)(int)fly * W + (int)flx;
-  float* o = out + (size_t)i * win * win;
-  for (int j = threadIdx.x; j < win * win; j += kBits) {
-    const int row = j / win;
-    const int col = j - row * win;
-    o[j] = tap(base + (size_t)row * W + col, W, fx, fy, gx, gy);
+  float* const o = out + (size_t)i * win * win;
+  const float* const frame = img + (size_t)y0 * W + x0;  // the corner pixel
+  const int ns = kPatchThreads / win;  // rows a step (direct), strips
+  if constexpr (kDirect) {
+    const int sc = kPatchThreads - ns * win;
+    int row = t / win;
+    int col = t - row * win;
+    for (int j = t; j < win * win; j += kPatchThreads) {
+      o[j] = tap(frame + (size_t)row * W + col, W, fx, fy, gx, gy);
+      col += sc;
+      row += ns;
+      if (col >= win) {
+        col -= win;
+        ++row;
+      }
+    }
+  } else {
+    // Band blockIdx.y: output rows [b0, b1), split over the ns strips.
+    const int b0 = blockIdx.y * win / gridDim.y;
+    const int b1 = (blockIdx.y + 1) * win / gridDim.y;
+    const int s = t / win;
+    const int c = t - s * win;
+    const int rps = (b1 - b0 + ns - 1) / ns;
+    const int r0 = b0 + s * rps;
+    const int r1 = min(b1, r0 + rps);
+    if (s >= ns || r0 >= r1) return;
+    const float* q = frame + (size_t)r0 * W + c;
+    float* oo = o + r0 * win + c;
+    float top = lerp2(gx, fx, __ldg(q), __ldg(q + 1));
+    for (int row = r0; row < r1; ++row, oo += win) {
+      q += W;
+      const float bot = lerp2(gx, fx, __ldg(q), __ldg(q + 1));
+      *oo = lerp2(gy, fy, top, bot);
+      top = bot;
+    }
   }
 }
 
@@ -312,15 +396,23 @@ int vins_brief_raw_words(const void* img, int H, int W, const void* pts,
 }
 
 // img: [H, W] f32; pts: [N, 2] f32 pixel (x, y); 1 <= win <= 128 and
-// H, W >= win + 2; out: [N, win, win] f32 bilinear patches centred at pts.
+// H, W >= win + 2; out: [N, win, win] f32: bilinear patches centred at
+// pts.
 int vins_extract_patches(const void* img, int H, int W, const void* pts,
                          int N, int win, void* out, void* stream) {
   if (win < 1 || win > kMaxPatchWin || H < win + 2 || W < win + 2)
     return (int)cudaErrorInvalidValue;
   if (N <= 0) return 0;
-  patches_kernel<<<N, kBits, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(img), H, W, static_cast<const float*>(pts),
-      win, static_cast<float*>(out));
+  const auto* im = static_cast<const float*>(img);
+  const auto* pt = static_cast<const float*>(pts);
+  auto* o = static_cast<float*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (patch_direct(win)) {
+    patches_kernel<true><<<N, kPatchThreads, 0, s>>>(im, H, W, pt, win, o);
+  } else {
+    patches_kernel<false><<<dim3(N, strip_bands(win)), kPatchThreads, 0,
+                            s>>>(im, H, W, pt, win, o);
+  }
   return (int)cudaGetLastError();
 }
 

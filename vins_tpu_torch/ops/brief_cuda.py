@@ -11,7 +11,9 @@ patch kernel (brief.py:87), staging each keypoint's window in shared
 memory; `extract_brief_words` takes a frame blurred beforehand, the
 direct counterpart of the Pallas kernel; `extract_patches` computes the
 Pallas kernel's own output, the [N, win, win] patches at any window from
-1 to 128, in a kernel of its own. The port follows the TPU
+1 to 128, in a kernel of its own (its library yardstick,
+`extract_patches_grid_sample`, one `F.grid_sample` call, serves the tests
+and chip_smoke.py only). The port follows the TPU
 semantics on every device: each keypoint's 49x49 patch corner is clamped
 once, as `_bilinear_patch` clamps it (klt_pallas.py:40-46), so every tap
 of a keypoint within 25 px of a border shifts with the patch. (The JAX
@@ -31,6 +33,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from . import native
 from .image import _sep_filter
@@ -63,6 +66,41 @@ def extract_patches_plain(img: torch.Tensor, pts: torch.Tensor,
         pts.shape[0], win, win)
 
 
+def patch_grid(img: torch.Tensor, pts: torch.Tensor,
+               win: int = PATCH_WIN) -> torch.Tensor:
+    """[1, N * win, win, 2] grid_sample points of the patches of
+    extract_patches_plain: the clamped corner plus the integer offsets,
+    normalized as 2x / (W - 1) - 1 (in float64, then float32)."""
+    H, W = img.shape
+    r = (win - 1) / 2.0
+    cx = torch.clamp(torch.nan_to_num(pts[:, 0] - r, nan=0.0), 0.0,
+                     W - win - 1.001)
+    cy = torch.clamp(torch.nan_to_num(pts[:, 1] - r, nan=0.0), 0.0,
+                     H - win - 1.001)
+    o = torch.arange(win, dtype=torch.float64, device=pts.device)
+    gx = 2 * (cx.double()[:, None] + o) / (W - 1) - 1     # [N, win]
+    gy = 2 * (cy.double()[:, None] + o) / (H - 1) - 1
+    grid = torch.stack(torch.broadcast_tensors(gx[:, None, :],
+                                               gy[:, :, None]), -1)
+    return grid.reshape(1, pts.shape[0] * win, win, 2).float()
+
+
+def extract_patches_grid_sample(img: torch.Tensor, pts: torch.Tensor,
+                                win: int = PATCH_WIN,
+                                grid=None) -> torch.Tensor:
+    """The library yardstick of extract_patches: the same [N, win, win]
+    patches from one F.grid_sample call (bilinear, border padding,
+    align_corners=True) on `grid` (patch_grid's, built here if None).
+    It rounds the sample point otherwise (grid_sample unnormalizes it), so
+    it agrees with extract_patches_plain to about 1e-5 on a blurred frame,
+    not bit for bit. Used by the tests and chip_smoke.py only."""
+    if grid is None:
+        grid = patch_grid(img, pts, win)
+    return F.grid_sample(img[None, None], grid, mode="bilinear",
+                         padding_mode="border", align_corners=True
+                         ).reshape(pts.shape[0], win, win)
+
+
 def _patches_cuda(img, pts, win):
     dev = pts.device
     N = pts.shape[0]
@@ -82,11 +120,12 @@ def _patches_cuda(img, pts, win):
 def extract_patches(img: torch.Tensor, pts: torch.Tensor,
                     win: int = PATCH_WIN) -> torch.Tensor:
     """K3's own output (extract_patches_pallas): [N, win, win] bilinear
-    patches of img [H, W] centred at pts [N, 2], in one launch on the card;
-    equal to extract_patches_plain bit for bit."""
+    patches of img [H, W] centred at pts [N, 2], in one launch on the card
+    (none at N = 0); equal to extract_patches_plain bit for bit."""
     if pts.is_cuda:
         out = _patches_cuda(img, pts, win)
-        extract_patches.launches += 1
+        if pts.shape[0]:
+            extract_patches.launches += 1
         return out
     if pts.device.type != "cpu":
         raise ValueError(f"extract_patches: unsupported device {pts.device}")
