@@ -139,12 +139,17 @@ Phases (any failure exits non-zero, and no result line is printed):
                 CARD_TEST_FILES through pytest without JAX or conftest
                 (CARD_TEST_ARGS, README's command): the kernels against
                 their plain versions at the tests' points, the
-                runtime-window plan's boundaries among them; fails unless
-                pytest exits 0 and every collected case passed, none
-                skipped; prints the count;
+                runtime-window plan's boundaries among them, and the
+                stream at the shipped klt_eps on the card against the
+                same stream on the CPU (tests/test_torch_stream_card.py);
+                fails unless pytest exits 0 and every collected case
+                passed, none skipped; prints the count;
 Every run prints its initialization attempts (frame, status, wall time,
-synchronizing CUDA calls); the interactive run prints the per-frame wall
-time of the motion-only solve, a backend frame and a keyframe insert.
+synchronizing CUDA calls) and how many marginalization priors took each
+branch of the prior's factorization (ridge Cholesky, 100x ridge, eigen
+fallback; counted on the device, read once after the run); the
+interactive run prints the per-frame wall time of the motion-only solve,
+a backend frame and a keyframe insert.
 Kernel launch counts are set to 0 just before each system run and read
 just after it; every kernel on a run's path must have launched there
 (klt_fb_ncc once per tracked frame, the standalone K1 and K2 never;
@@ -295,9 +300,10 @@ NCC_TOL = 1e-4
 # JAX (the card's machine has none): no conftest (it imports JAX) and no
 # pytest.ini addopts (its -n 2 needs pytest-xdist).
 CARD_TEST_FILES = ("tests/test_torch_klt.py", "tests/test_torch_klt_domain.py",
-                   "tests/test_torch_brief.py")
+                   "tests/test_torch_brief.py",
+                   "tests/test_torch_stream_card.py")
 CARD_TEST_ARGS = ("-p", "no:cacheprovider", "--noconftest", "-o", "addopts=",
-                  "-m", "gpu", "-q")
+                  "-m", "gpu", "-q", "-rP")
 CARD_TESTS_TIMEOUT_S = 600
 # The runtime-window kernels: (window, levels) points the default configs
 # do not reach, on 640x480 frames with 128 slots (NCC within
@@ -1271,9 +1277,29 @@ def domain_kernel_phase(cfg, device) -> list:
 
 
 def _reset_counts() -> None:
+    """Kernel launch counts to 0, and the marginalization priors' branches
+    counted from here (on the device; _read_branches reads them)."""
+    from vins_tpu_torch.core import marginalization as marg
     from vins_tpu_torch.ops import brief_cuda, klt_cuda
     klt_cuda.reset_launch_counts()
     brief_cuda.reset_launch_counts()
+    marg.count_prior_branches()
+
+
+def _read_branches() -> dict:
+    """How many marginalization priors since _reset_counts took each
+    branch of _info_to_sqrt (the ridge Cholesky, the 100x ridge, the
+    eigen fallback): one host read at the end of a run; counting stops."""
+    from vins_tpu_torch.core import marginalization as marg
+    out = marg.prior_branches()
+    marg.count_prior_branches(False)
+    return out
+
+
+def _branches_text(b: dict) -> str:
+    return (f"marginalization priors {b['ridge']} by the ridge Cholesky, "
+            f"{b['ridge_100x']} by the 100x ridge, {b['fallback']} by the "
+            f"eigen fallback")
 
 
 def _read_counts() -> dict:
@@ -1534,6 +1560,7 @@ def slice_phase(cfg, device, use_loop: bool, traj: dict, n_frames: int,
         del sys_._initialize_window
     wall = time.perf_counter() - t0
     launches = _read_counts()
+    branches = _read_branches()
 
     if len(outs) != n_frames:
         _fail(f"{len(outs)} outputs for {n_frames} frames")
@@ -1573,7 +1600,7 @@ def slice_phase(cfg, device, use_loop: bool, traj: dict, n_frames: int,
                                    - sys_.timings["blocks"])
                                   / max(sys_.timings["blocks"], 1)),
         launches=launches, attach_tries=attach_tries,
-        syncs=_sync_summary(segments),
+        prior_branches=branches, syncs=_sync_summary(segments),
         sync_segments=segments, profiled_cycle=profiled)
     if use_loop:
         lc = sys_.loop
@@ -1713,6 +1740,7 @@ def euroc_phase(device) -> dict:
         harvest_mod.harvest_ba_problem = harvest
     wall = time.perf_counter() - t0
     launches = _read_counts()
+    branches = _read_branches()
     sys_ = made[0]
     segments = hooks["finish"]()
     prof = hooks.get("profiler")
@@ -1772,7 +1800,8 @@ def euroc_phase(device) -> dict:
             EUROC_BLOCK),
         cycle_median_s=float(np.median(cycles)) if len(cycles) else None,
         blocks=n_block, launches=launches, attach_tries=attach_tries,
-        keyframes_inserted=lc.n_inserts, loop_stats=dict(sys_.loop_stats),
+        prior_branches=branches, keyframes_inserted=lc.n_inserts,
+        loop_stats=dict(sys_.loop_stats),
         timings=dict(sys_.timings), syncs=_sync_summary(segments),
         sync_segments=segments,
         profiled_cycle=prof.result if prof is not None else None)
@@ -1805,6 +1834,7 @@ def realtime_phase(cfg, device) -> dict:
         return dispatch(*args, **kwargs)
 
     sys_.dispatch_block = logged
+    _reset_counts()
     t0 = time.perf_counter()
     outs = sys_.process_stream(imgs, seq.chunks, block=N_RT_BLOCK,
                                ts=seq.timestamps.cpu().numpy(),
@@ -1812,6 +1842,7 @@ def realtime_phase(cfg, device) -> dict:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    branches = _read_branches()
     del sys_.dispatch_block
     budgets.append(sys_.solver_budget)
     lo, hi = cfg.solver.min_iters, cfg.solver.max_iters
@@ -1829,7 +1860,7 @@ def realtime_phase(cfg, device) -> dict:
     ate, ate_raw = _ate(est, seq.p.cpu().numpy()[init_at:])
     return dict(frames=n, init_at=init_at, budgets=budgets, wall_s=wall,
                 blocks=len(budgets) - 1, ate_rmse_m=ate,
-                ate_raw_rmse_m=ate_raw)
+                ate_raw_rmse_m=ate_raw, prior_branches=branches)
 
 
 def interactive_phase(cfg, device, traj: dict, n_frames: int) -> dict:
@@ -1911,6 +1942,7 @@ def interactive_phase(cfg, device, traj: dict, n_frames: int) -> dict:
         pnp_mod.pnp_step = step
         del sys_._handle_keyframe, sys_._initialize_window
     launches = _read_counts()
+    branches = _read_branches()
 
     init_at = next((i for i, o in enumerate(outs) if o.initialized), None)
     if init_at is None:
@@ -1963,7 +1995,8 @@ def interactive_phase(cfg, device, traj: dict, n_frames: int) -> dict:
         boot_frame=stats([f["ms"] for f in frames[:init_at]
                           if f["kind"] == "boot"]),
         keyframes_inserted=lc.n_inserts, loop_stats=dict(sys_.loop_stats),
-        launches=launches, profiled_frames=profiled)
+        launches=launches, prior_branches=branches,
+        profiled_frames=profiled)
 
 
 def _attempts_text(run: dict) -> str:
@@ -1995,7 +2028,8 @@ def _report_interactive(run: dict, card: str) -> None:
           f" inserted; device busy in frames "
           f"{(run['profiled_frames'] or {}).get('frames')} "
           f"{_busy_text(run['profiled_frames'])}; launches "
-          f"{run['launches']}; {card}")
+          f"{run['launches']}; {_branches_text(run['prior_branches'])}; "
+          f"{card}")
 
 
 def _report_run(tag: str, run: dict, card: str) -> None:
@@ -2032,7 +2066,8 @@ def _report_run(tag: str, run: dict, card: str) -> None:
              f"{run['keyframe_syncs_per_block']:.1f} keyframe-branch "
              f"syncs); device busy in one steady-state cycle "
              f"{_busy_text(run['profiled_cycle'])}; launches "
-             f"{run['launches']}; {card}")
+             f"{run['launches']}; {_branches_text(run['prior_branches'])}; "
+             f"{card}")
     print(line)
 
 
@@ -2064,7 +2099,8 @@ def _report_euroc(run: dict, card: str) -> None:
           f" device busy in one steady-state cycle {busy}; "
           f"{run['keyframes_inserted']} keyframes inserted, "
           f"{run['attach_tries']} attach tries, loop {run['loop_stats']}; "
-          f"launches {run['launches']}; {card}")
+          f"launches {run['launches']}; "
+          f"{_branches_text(run['prior_branches'])}; {card}")
 
 
 def _stream_sequences(cfg, device):
@@ -2651,6 +2687,7 @@ def _demo_part(device) -> dict:
         run_synthetic.run = run
     wall = time.perf_counter() - t0
     launches = _read_counts()
+    branches = _read_branches()
     if rc != 0 or not runs:
         _fail(f"the demo returned {rc}")
     r = runs[0]
@@ -2691,7 +2728,7 @@ def _demo_part(device) -> dict:
                 ate_raw_rmse_m=ate_raw, wall_s=wall,
                 frames_per_s_after_init=len(after) / sum(after),
                 keyframes_inserted=lc.n_inserts, loop_hits=lc.n_loops,
-                launches=launches)
+                launches=launches, prior_branches=branches)
 
 
 def _sensor_events(t_end=1.0, accel_hz=100.0, gyro_hz=97.0, img_hz=10.0):
@@ -2834,6 +2871,7 @@ def _loader_part(device, root: str) -> dict:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _read_counts()
+    branches = _read_branches()
     with np.load(os.path.join(out, "run.npz")) as z:
         init = z["initialized"]
         p, q = z["p"], z["q"]
@@ -2855,7 +2893,7 @@ def _loader_part(device, root: str) -> dict:
                 native_s=native_s, workers=LOADER_WORKERS,
                 queue_cap=LOADER_QUEUE_CAP,
                 euroc=dict(result=result, init_at=init_at, wall_s=wall,
-                           launches=launches))
+                           launches=launches, prior_branches=branches))
 
 
 def last_slice_phase(cfg, device) -> dict:
@@ -2897,7 +2935,8 @@ def _report_last_slice(run: dict, card: str) -> None:
           f"{d['ate_rmse_m']:.4f} m aligned (not gated), "
           f"{d['frames_per_s_after_init']:.2f} frames/s after init, "
           f"{d['keyframes_inserted']} keyframe inserts, wall "
-          f"{d['wall_s']:.1f} s; launches {d['launches']}; {card}")
+          f"{d['wall_s']:.1f} s; launches {d['launches']}; "
+          f"{_branches_text(d['prior_branches'])}; {card}")
     rt = run["runtime"]
     print(f"last-slice runtime: {rt['chunks']} chunks from {rt['events']} "
           f"events, native {rt['native_s']:.4f} s (build and load "
@@ -2915,7 +2954,8 @@ def _report_last_slice(run: dict, card: str) -> None:
               f"{ld['native_s']:.3f} s, frames equal; run_euroc "
               f"--native-loader: {eu['result']['frames']} frames, init at "
               f"frame {eu['init_at']}, {eu['wall_s']:.1f} s, launches "
-              f"{eu['launches']}; {card}")
+              f"{eu['launches']}; {_branches_text(eu['prior_branches'])}; "
+              f"{card}")
     print(f"last-slice: phase wall {run['wall_s']:.1f} s (geometry "
           f"{g['part_s']:.1f}, demo {d['part_s']:.1f}, runtime "
           f"{rt['part_s']:.1f}, loader {ld['part_s']:.1f}); {card}")
@@ -3019,7 +3059,8 @@ def _join_card_tests(run: tuple) -> dict:
         _fail(f"the card tests took over {CARD_TESTS_TIMEOUT_S} s")
     seconds = time.perf_counter() - t0
     with open(log) as f:
-        tail = f.read()[-3000:]
+        text = f.read()
+    tail = text[-3000:]
     if not os.path.exists(xml):
         _fail(f"the card tests wrote no report (pytest exit {rc}):\n{tail}")
     root = ET.parse(xml).getroot()
@@ -3029,8 +3070,11 @@ def _join_card_tests(run: tuple) -> dict:
     if rc != 0 or n["tests"] == 0 or n["failures"] or n["errors"] \
             or n["skipped"]:
         _fail(f"the card tests: pytest exit {rc}, {n}:\n{tail}")
+    stream = [line for line in text.splitlines()
+              if line.startswith("card against CPU")]
     return dict(passed=n["tests"], seconds=seconds,
-                files=list(CARD_TEST_FILES))
+                files=list(CARD_TEST_FILES),
+                stream=stream[0] if stream else None)
 
 
 def main() -> None:
@@ -3070,7 +3114,8 @@ def main() -> None:
     mark("card tests")
     print(f"card tests: {run_cards['passed']} gpu cases of "
           f"{', '.join(CARD_TEST_FILES)} passed on the card without JAX, "
-          f"none skipped, in {run_cards['seconds']:.1f} s; {card}")
+          f"none skipped, in {run_cards['seconds']:.1f} s; the stream at "
+          f"klt_eps 0.01: {run_cards['stream']}; {card}")
 
     proc, loop_path = _start_loop_on(str(device))
     try:
@@ -3088,7 +3133,8 @@ def main() -> None:
               f"{N_RT_BLOCK}, init at frame {run_rt['init_at']}, solver "
               f"budget per block {run_rt['budgets'][:-1]} then "
               f"{run_rt['budgets'][-1]}, ATE {run_rt['ate_rmse_m']:.4f} m "
-              f"aligned (not gated), {run_rt['wall_s']:.1f} s; {card}")
+              f"aligned (not gated), {run_rt['wall_s']:.1f} s; "
+              f"{_branches_text(run_rt['prior_branches'])}; {card}")
         run_int = interactive_phase(cfg, device, TRAJ_OFF,
                                     N_FRAMES_INTERACTIVE)
         _report_interactive(run_int, card)

@@ -557,10 +557,12 @@ def test_pnp_deadreckon_step_matches_jax(win, booted):
 def test_info_to_sqrt_matches_jax_or_falls_back(definite):
     """The prior's square root: on a positive definite H the ridge
     Cholesky equals the reference's (1e-4 relative, float32 LAPACK). On
-    an H indefinite beyond the 100x ridge, as the float32 Schur
+    an H indefinite beyond the 100x ridge c, as the float32 Schur
     complement of the window-10 bootstrap comes out, the reference
     returns NaN (jnp.linalg.cholesky's failure value) while the port
-    takes the eigen-sqrt with clamping: finite, with JᵀJ the clamped H."""
+    takes the eigen-sqrt of H + cI with its eigenvalues floored at 1e-7
+    of H's largest diagonal entry, the nearest matrix that the 100x ridge
+    makes positive definite: finite, JᵀJ that matrix and Jᵀr = g."""
     rng = np.random.default_rng(9)
     n = 30
     Q, _ = np.linalg.qr(rng.normal(size=(n, n)))
@@ -580,8 +582,106 @@ def test_info_to_sqrt_matches_jax_or_falls_back(definite):
         return
     assert not np.all(np.isfinite(_np(J_j)))
     assert np.all(np.isfinite(J_t)) and np.all(np.isfinite(r_t))
-    w_c = np.where(w > eps, w, 0.0)
-    H_c = (Q * w_c) @ Q.T
+    d_max = np.abs(np.diag(H)).max()
+    c = 100.0 * (eps + 1e-6 * d_max)
+    w_h, V_h = np.linalg.eigh(H.astype(np.float64))
+    assert w_h[0] + c < 0
+    H_c = (V_h * np.maximum(w_h + c, eps + 1e-7 * d_max)) @ V_h.T
     assert np.abs(J_t.T @ J_t - H_c).max() <= 1e-3 * np.abs(H_c).max()
-    np.testing.assert_allclose(J_t.T @ r_t, (Q * (w > eps)) @ Q.T @ g,
-                               atol=1e-3)
+    np.testing.assert_allclose(J_t.T @ r_t, g, atol=1e-3)
+
+
+def _sqrt_branch(H: torch.Tensor, eps: float) -> str:
+    """Which factorization _info_to_sqrt takes for H."""
+    Hs = 0.5 * (H + H.T)
+    ridge = eps + 1e-6 * torch.max(torch.abs(torch.diagonal(Hs)))
+    I = torch.eye(H.shape[0])
+    if int(torch.linalg.cholesky_ex(Hs + ridge * I)[1]) == 0:
+        return "ridge"
+    if int(torch.linalg.cholesky_ex(Hs + 100.0 * ridge * I)[1]) == 0:
+        return "ridge_100x"
+    return "fallback"
+
+
+def _edge_matrix(least: float, n: int = 30, seed: int = 9):
+    """(H, g) with eigenvalues geomspace(1e4, 1) but the least, `least`."""
+    rng = np.random.default_rng(seed)
+    Q, _ = np.linalg.qr(rng.normal(size=(n, n)))
+    w = np.geomspace(1e4, 1.0, n)
+    w[-1] = least
+    H = ((Q * w) @ Q.T).astype(np.float32)
+    return torch.as_tensor(H), torch.as_tensor(
+        rng.normal(size=n).astype(np.float32))
+
+
+@pytest.mark.parametrize("branch", ["ridge", "ridge_100x"])
+def test_info_to_sqrt_bit_for_bit_where_a_cholesky_succeeds(branch):
+    """Wherever either ridge Cholesky succeeds, the prior is that
+    factor's, bit for bit: J = Lᵀ and r = L⁻¹g of H + ridge·I, or of
+    H + 100·ridge·I where the first fails (an H with its least
+    eigenvalue at -0.3 of the 100x ridge)."""
+    eps = 1e-8
+    H, _ = _edge_matrix(1.0)
+    d_max = float(torch.max(torch.abs(torch.diagonal(H))))
+    least = 1.0 if branch == "ridge" else -0.3 * 100.0 * 1e-6 * d_max
+    H, g = _edge_matrix(least)
+    assert _sqrt_branch(H, eps) == branch
+    Hs = 0.5 * (H + H.T)
+    ridge = eps + 1e-6 * torch.max(torch.abs(torch.diagonal(Hs)))
+    k = 1.0 if branch == "ridge" else 100.0
+    L = torch.linalg.cholesky(Hs + (k * ridge) * torch.eye(H.shape[0]))
+    J, r = t_marg._info_to_sqrt(H, g, eps)
+    assert torch.equal(J, L.T)
+    assert torch.equal(r, torch.linalg.solve_triangular(
+        L, g[:, None], upper=False)[:, 0])
+
+
+def test_info_to_sqrt_continuous_across_the_ridge_edge():
+    """Constraint (c) of the fallback: H's least eigenvalue at -c + t·s,
+    c the 100x ridge and s = 1e-7 of the largest diagonal entry (the
+    float32 round-off of H's entries), for t = -1 (both factorizations
+    fail), +1 and +3 (the 100x-ridge Cholesky succeeds). Crossing the
+    edge (t from +1 to -1) moves the prior's solve (JᵀJ)⁻¹Jᵀr no more
+    than the same step of 2s moves it on the Cholesky side (+1 to +3),
+    where the solve grows as 1/λ_min(H + cI); every solve is finite."""
+    eps = 1e-8
+    H0, _ = _edge_matrix(0.0)
+    d_max = float(torch.max(torch.abs(torch.diagonal(H0))))
+    c, s = 100.0 * (eps + 1e-6 * d_max), 1e-7 * d_max
+
+    def solve(t):
+        H, g = _edge_matrix(-c + t * s)
+        J, r = (x.double().numpy() for x in t_marg._info_to_sqrt(H, g, eps))
+        assert np.all(np.isfinite(J)) and np.all(np.isfinite(r))
+        return _sqrt_branch(H, eps), np.linalg.solve(J.T @ J, J.T @ r)
+
+    (b_fall, x_fall), (b_a, x_a), (b_a2, x_a2) = map(solve, (-1, 1, 3))
+    assert (b_fall, b_a, b_a2) == ("fallback", "ridge_100x", "ridge_100x")
+    jump = np.abs(x_fall - x_a).max()
+    assert jump <= np.abs(x_a2 - x_a).max(), jump
+
+
+def test_prior_branch_counts():
+    """count_prior_branches() counts the branch each _info_to_sqrt call
+    takes (ridge, 100x ridge, eigen fallback) on the tensors' device, not
+    under torch.func.vmap; prior_branches() reads the counts; with
+    counting off they read 0."""
+    eps = 1e-8
+    H0, _ = _edge_matrix(1.0)
+    c = 100.0 * 1e-6 * float(torch.max(torch.abs(torch.diagonal(H0))))
+    pairs = [_edge_matrix(least) for least in (1.0, -0.3 * c, -2.0 * c)]
+    assert [_sqrt_branch(H, eps) for H, _ in pairs] == [
+        "ridge", "ridge_100x", "fallback"]
+    t_marg.count_prior_branches()
+    try:
+        for H, g in pairs:
+            t_marg._info_to_sqrt(H, g, eps)
+        torch.func.vmap(lambda H, g: t_marg._info_to_sqrt(H, g, eps))(
+            torch.stack([H for H, _ in pairs]),
+            torch.stack([g for _, g in pairs]))
+        assert t_marg.prior_branches() == dict(ridge=1, ridge_100x=1,
+                                               fallback=1)
+    finally:
+        t_marg.count_prior_branches(False)
+    assert t_marg.prior_branches() == dict(ridge=0, ridge_100x=0,
+                                           fallback=0)

@@ -35,39 +35,82 @@ def _chol_ok(L: torch.Tensor, info: torch.Tensor) -> torch.Tensor:
     return (info == 0) & torch.all(torch.isfinite(L))
 
 
+# Per-device [3] int64 counts of the priors _info_to_sqrt factorized with
+# the ridge, with the 100x ridge, and through the eigen fallback; None
+# (the default) counts nothing. count_prior_branches() switches it on.
+_BRANCH_COUNTS = None
+
+
+def count_prior_branches(on: bool = True) -> None:
+    """Start (or stop) counting the branches of _info_to_sqrt, on the
+    device of each prior and without a host read; prior_branches() reads
+    them. Priors formed under torch.func.vmap are not counted."""
+    global _BRANCH_COUNTS
+    _BRANCH_COUNTS = {} if on else None
+
+
+def prior_branches() -> dict:
+    """{"ridge": n, "ridge_100x": n, "fallback": n} summed over devices
+    since count_prior_branches() (one host read per device)."""
+    tot = [0, 0, 0]
+    for c in (_BRANCH_COUNTS or {}).values():
+        tot = [a + int(b) for a, b in zip(tot, c.tolist())]
+    return dict(zip(("ridge", "ridge_100x", "fallback"), tot))
+
+
+def _count_branches(ok1: torch.Tensor, ok2: torch.Tensor) -> None:
+    if _BRANCH_COUNTS is None or torch._C._functorch.is_batchedtensor(ok1):
+        return
+    c = _BRANCH_COUNTS.get(ok1.device)
+    if c is None:
+        c = _BRANCH_COUNTS[ok1.device] = torch.zeros(
+            3, dtype=torch.int64, device=ok1.device)
+    c += torch.stack([ok1, ~ok1 & ok2, ~(ok1 | ok2)]).to(torch.int64)
+
+
 def _info_to_sqrt(H: torch.Tensor, g: torch.Tensor, eps: float,
                   method: str = "chol"):
     """(H, g) -> (J0, r0) with J0ᵀJ0 ≈ H and J0ᵀ r0 = g: eigen-sqrt with
     clamping ("eigh"), or a ridge Cholesky ("chol", retried with a 100x
-    ridge where the first factorization fails).
+    ridge c where the first factorization fails).
 
-    Where both Cholesky factorizations fail, "chol" takes the eigen-sqrt.
-    The reference returns NaN there (jnp.linalg.cholesky's failure
-    value); it happens when the float32 Schur complement comes out
-    indefinite by more than the ridge, as the window-10 bootstrap prior
-    does (ROADMAP Queue 3), and the partial factor torch leaves would
-    otherwise become the prior."""
+    Where both Cholesky factorizations fail (the float32 H indefinite by
+    more than c), "chol" takes the eigen-sqrt of Hs + cI with its
+    eigenvalues floored at the float32 round-off of Hs's entries (1e-7
+    of the largest diagonal entry): the square root of the nearest matrix
+    that the 100x ridge makes positive definite. It keeps the ridge in
+    every direction, as the 100x-ridge factor does, and a round-off
+    change of H across the point where that factorization stops
+    succeeding moves the prior's solve no more than the same change does
+    on the Cholesky side, where the solve grows as 1/λ_min(Hs + cI)
+    towards that point. The reference returns NaN there
+    (jnp.linalg.cholesky's failure value), and the partial factor torch
+    leaves would otherwise become the prior."""
     Hs = 0.5 * (H + H.T)
     w, V = _eigh(Hs) if method == "eigh" else (None, None)
 
-    def eig_sqrt(w, V):
-        keep = w > eps
+    def eig_sqrt(w, V, floor):
+        keep = w > floor
         s = torch.sqrt(torch.where(keep, w, 1.0))
         s_inv = torch.where(keep, 1.0 / s, 0.0)
         s = torch.where(keep, s, 0.0)
         return s[:, None] * V.T, (s_inv[:, None] * V.T) @ g
 
     if method == "eigh":
-        return eig_sqrt(w, V)
+        return eig_sqrt(w, V, eps)
     n = Hs.shape[0]
     I = torch.eye(n, dtype=Hs.dtype, device=Hs.device)
-    ridge = eps + 1e-6 * torch.max(torch.abs(torch.diagonal(Hs)))
+    d_max = torch.max(torch.abs(torch.diagonal(Hs)))
+    ridge = eps + 1e-6 * d_max
     L1, info1 = torch.linalg.cholesky_ex(Hs + ridge * I)
     L2, info2 = torch.linalg.cholesky_ex(Hs + (100.0 * ridge) * I)
     ok1, ok2 = _chol_ok(L1, info1), _chol_ok(L2, info2)
+    _count_branches(ok1, ok2)
     L = torch.where(ok1, L1, L2)
     r0 = torch.linalg.solve_triangular(L, g[:, None], upper=False)[:, 0]
-    J_e, r_e = eig_sqrt(*_eigh(Hs))
+    w, V = _eigh(Hs)
+    J_e, r_e = eig_sqrt(torch.clamp(w + 100.0 * ridge,
+                                    min=eps + 1e-7 * d_max), V, 0.0)
     ok = ok1 | ok2
     return torch.where(ok, L.T, J_e), torch.where(ok, r0, r_e)
 

@@ -7,7 +7,9 @@ and forward–backward tracking with the NCC gate through the fused kernel
 CUDA tensor, their plain versions on a CPU tensor — so the port has the
 numerics of the JAX package's TPU path (early exit at klt_eps). With
 klt_eps = 0 they also equal the JAX package's CPU (XLA) path on live
-slots. Every post-filter of the reference is kept.
+slots. The whole system is held to that TPU path at the shipped klt_eps
+of 0.01 (tests/test_torch_stream_shipped.py, the Pallas kernels in
+interpret mode). Every post-filter of the reference is kept.
 """
 from __future__ import annotations
 
