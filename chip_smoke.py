@@ -141,13 +141,17 @@ Phases (any failure exits non-zero, and no result line is printed):
                 their plain versions at the tests' points, the
                 runtime-window plan's boundaries among them, and the
                 stream at the shipped klt_eps on the card against the
-                same stream on the CPU (tests/test_torch_stream_card.py);
+                same stream on the CPU, and the bootstrap's Schur
+                complement on the card against its float64 value
+                (tests/test_torch_stream_card.py);
                 fails unless pytest exits 0 and every collected case
                 passed, none skipped; prints the count;
 Every run prints its initialization attempts (frame, status, wall time,
 synchronizing CUDA calls) and how many marginalization priors took each
 branch of the prior's factorization (ridge Cholesky, 100x ridge, eigen
-fallback; counted on the device, read once after the run); the
+fallback) and how many Schur complements took a larger ridge where the
+dropped block's first Cholesky failed (counted on the device, read once
+after the run); the
 interactive run prints the per-frame wall time of the motion-only solve,
 a backend frame and a keyframe insert.
 Kernel launch counts are set to 0 just before each system run and read
@@ -1289,7 +1293,9 @@ def _reset_counts() -> None:
 def _read_branches() -> dict:
     """How many marginalization priors since _reset_counts took each
     branch of _info_to_sqrt (the ridge Cholesky, the 100x ridge, the
-    eigen fallback): one host read at the end of a run; counting stops."""
+    eigen fallback) and how many Schur complements took a larger ridge
+    than _schur's first: one host read at the end of a run; counting
+    stops."""
     from vins_tpu_torch.core import marginalization as marg
     out = marg.prior_branches()
     marg.count_prior_branches(False)
@@ -1299,7 +1305,8 @@ def _read_branches() -> dict:
 def _branches_text(b: dict) -> str:
     return (f"marginalization priors {b['ridge']} by the ridge Cholesky, "
             f"{b['ridge_100x']} by the 100x ridge, {b['fallback']} by the "
-            f"eigen fallback")
+            f"eigen fallback; Schur complements {b['schur_retry']} past the "
+            f"first ridge")
 
 
 def _read_counts() -> dict:
@@ -3117,6 +3124,14 @@ def main() -> None:
           f"none skipped, in {run_cards['seconds']:.1f} s; the stream at "
           f"klt_eps 0.01: {run_cards['stream']}; {card}")
 
+    from vins_tpu_torch.core import marginalization as marg
+    print(f"marginalization: every bootstrap prior held at "
+          f"{marg.BOOT_HOLD:g} of its largest diagonal entry in every "
+          f"direction, every dropped block ridged at "
+          f"{marg.SCHUR_RIDGES[0]:g} of its unit diagonal, then "
+          f"{', '.join(f'{r:g}' for r in marg.SCHUR_RIDGES[1:])} where that "
+          f"factorization fails (constants of core/marginalization.py, the "
+          f"same in every run below)")
     proc, loop_path = _start_loop_on(str(device))
     try:
         run_eu = euroc_phase(device)

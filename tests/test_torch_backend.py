@@ -433,6 +433,25 @@ def test_bootstrap_matches_jax(booted):
     _same_information(est_t.prior, est_j.prior, 1e-3)
 
 
+def test_bootstrap_prior_holds_every_direction(booted):
+    """The port's bootstrap prior holds every direction of the kept state
+    at marginalization.BOOT_HOLD of the largest diagonal entry of its
+    information (the 100x ridge, a departure, ROADMAP item 31), whatever
+    the round-off of its Schur complement: the least eigenvalue of JᵀJ is
+    at least that hold less the Cholesky ridge's float32 round-off, on a
+    window whose own information leaves position and yaw unobserved."""
+    _, est_t = booted
+    D = 15 * (F - 1)
+    J = est_t.prior.J.double()[:D, :D]
+    H = (J.T @ J).numpy()
+    hold = t_marg.BOOT_HOLD * np.abs(np.diag(H)).max()
+    assert np.linalg.eigvalsh(H)[0] >= 0.99 * hold
+
+
+# The backend step's LM budget in its parity test: both sides run to it.
+STEP_BUDGET = 4
+
+
 def test_backend_step_matches_jax(win, booted):
     """One backend_step from the same bootstrapped state (the JAX state
     carried over, so the step alone is compared), with an inactive loop
@@ -441,7 +460,12 @@ def test_backend_step_matches_jax(win, booted):
     second-newest branch is covered by test_marginalization_matches_jax
     and the streaming test). Decisions equal; poses within 1e-3 m (the
     fp32 solve of a prior-conditioned system); the accepted iteration
-    count within one, as in the window solve."""
+    count within one under a budget of STEP_BUDGET LM iterations on both
+    sides, as in the active-loop solve: left to its stop test, the
+    converged tail takes steps whose gains are float32 round-off (costs
+    equal to 5e-6), and the reference's own count moves by two under
+    2e-4 px draws of the observations (tools/reference_host_spread.py,
+    the backend scene)."""
     w, _ = win
     est_j, est_t = booted
     est_t = interop.to_torch(jax.device_get(est_j), est_t)
@@ -450,7 +474,7 @@ def test_backend_step_matches_jax(win, booted):
         chunk=jax.tree.map(lambda x: x[-1], w.chunks), ids=w.feats.track_id,
         obs=w.feats.obs[obs_frame],
         obs_valid=w.feats.mask[obs_frame] & w.feats.valid,
-        loop=j_est.LoopInput.inactive(M))
+        loop=j_est.LoopInput.inactive(M), iter_budget=STEP_BUDGET)
     step = jax.jit(lambda e, i: j_est.backend_step(e, i, CFG, w.ext,
                                                    w.gravity))
     e2_j, out_j = step(est_j, inp_j)
@@ -461,7 +485,7 @@ def test_backend_step_matches_jax(win, booted):
         ids=torch.as_tensor(_np(inp_j.ids)),
         obs=torch.as_tensor(_np(inp_j.obs)),
         obs_valid=torch.as_tensor(_np(inp_j.obs_valid)),
-        loop=t_est.LoopInput.inactive(M))
+        loop=t_est.LoopInput.inactive(M), iter_budget=STEP_BUDGET)
     e2_t, out_t = t_est.backend_step(est_t, inp_t, TCFG, est_t_ext(w),
                                      torch.as_tensor(_np(w.gravity)))
     assert bool(out_t.is_keyframe) == bool(out_j.is_keyframe) is True
@@ -680,8 +704,72 @@ def test_prior_branch_counts():
             torch.stack([H for H, _ in pairs]),
             torch.stack([g for _, g in pairs]))
         assert t_marg.prior_branches() == dict(ridge=1, ridge_100x=1,
-                                               fallback=1)
+                                               fallback=1, schur_retry=0)
     finally:
         t_marg.count_prior_branches(False)
     assert t_marg.prior_branches() == dict(ridge=0, ridge_100x=0,
-                                           fallback=0)
+                                           fallback=0, schur_retry=0)
+
+
+def _dropped_block(least: float, seed: int = 3):
+    """(Arr, Arm, Amm, g_r, g_m) of one marginalization, float64 numpy:
+    Amm a 15x15 block whose unit-diagonal scaling has its least eigenvalue
+    at `least`, its diagonal spread over 1e-2 to 1e4 as a pose's and a
+    bias's are, and Arm and g_m with no component along that eigenvector
+    (the direction the dropped frame's information leaves open)."""
+    rng = np.random.default_rng(seed)
+    n, k = 15, 30
+    Q, _ = np.linalg.qr(rng.normal(size=(n, n)))
+    C = (Q * np.geomspace(3.0, 3e-2, n)) @ Q.T
+    C = C / np.sqrt(np.outer(np.diag(C), np.diag(C)))
+    w, V = np.linalg.eigh(C)
+    C = C + (least - w[0]) * np.outer(V[:, 0], V[:, 0])
+    C = C / np.sqrt(np.outer(np.diag(C), np.diag(C)))
+    d = np.sqrt(np.geomspace(1e-2, 1e4, n))
+    Amm = C * np.outer(d, d)
+    w, V = np.linalg.eigh(C)
+    Arm = rng.normal(size=(k, n)) * d[None, :]
+    Arm = Arm - np.outer(Arm @ (V[:, 0] / d), V[:, 0] * d)
+    g_m = rng.normal(size=n) * d
+    g_m = g_m - (g_m @ (V[:, 0] / d)) * V[:, 0] * d
+    X = rng.normal(size=(k, k))
+    Arr = X @ X.T + Arm @ np.linalg.pinv(Amm) @ Arm.T
+    return (Arr, Arm, Amm, rng.normal(size=k), g_m), w[0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("least, ridge", [(1e-3, 1e-6), (-1e-5, 1e-4),
+                                          (-1e-2, 1.0)])
+def test_schur_retries_past_the_ridge(dtype, least, ridge):
+    """_schur on a dropped block whose unit-diagonal scaling has its least
+    eigenvalue at `least`: definite (1e-3), or indefinite past the first
+    ridge, 1e-6, and the second, 1e-4, so that their Cholesky fails. The
+    complement is the Cholesky form at the first ridge of SCHUR_RIDGES
+    that succeeds, computed here in float64 numpy by LU, to 1e-10 of its
+    largest entry in float64 and 1e-4 in float32 (not the partial factor
+    torch leaves), and a ridge past the first is counted as
+    "schur_retry". A non-finite block gives a NaN complement."""
+    args, w0 = _dropped_block(least)
+    ridges = t_marg.SCHUR_RIDGES
+    assert all(w0 + r < 0 for r in ridges[:ridges.index(ridge)])
+    Arr, Arm, Amm, g_r, g_m = args
+    s = 1.0 / np.sqrt(np.diag(Amm))
+    As = Amm * np.outer(s, s) + ridge * np.eye(len(s))
+    X = np.linalg.solve(As, np.concatenate([Arm.T, g_m[:, None]], 1)
+                        * s[:, None])
+    H_ref = Arr - (Arm * s[None, :]) @ X[:, :-1]
+    g_ref = g_r - (Arm * s[None, :]) @ X[:, -1]
+    tol = 1e-10 if dtype == torch.float64 else 1e-4
+
+    t_marg.count_prior_branches()
+    try:
+        H, g = t_marg._schur(*[torch.as_tensor(x, dtype=dtype) for x in args])
+        assert t_marg.prior_branches()["schur_retry"] == int(ridge != 1e-6)
+    finally:
+        t_marg.count_prior_branches(False)
+    H, g = H.double().numpy(), g.double().numpy()
+    assert np.abs(H - H_ref).max() <= tol * np.abs(H_ref).max()
+    assert np.abs(g - g_ref).max() <= tol * np.abs(g_ref).max()
+    bad = [torch.as_tensor(x, dtype=dtype) for x in args]
+    bad[2][0, 0] = float("nan")
+    assert torch.all(torch.isnan(t_marg._schur(*bad)[0]))

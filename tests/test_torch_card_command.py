@@ -11,7 +11,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GPU_TESTS = {"test_kernels_on_card", "test_brief_kernel_on_card",
              "test_brief_raw_kernel_on_card", "test_patches_kernel_on_card",
              "test_runtime_window_kernels_on_card",
-             "test_stream_on_card_matches_cpu"}
+             "test_stream_on_card_matches_cpu",
+             "test_bootstrap_schur_matches_float64"}
 
 
 def _module(name, path):
@@ -41,7 +42,7 @@ def test_card_tests_collect_without_jax(tmp_path):
     collection still succeeds, and holds every gpu case and nothing else
     (1 in test_torch_klt.py, 2 in test_torch_brief.py and one per window
     of its PATCH_CARD_WINS, one per point of
-    test_torch_klt_domain.CARD_POINTS, 1 in test_torch_stream_card.py)."""
+    test_torch_klt_domain.CARD_POINTS, 2 in test_torch_stream_card.py)."""
     stub = tmp_path / "jax"
     stub.mkdir()
     (stub / "__init__.py").write_text(
@@ -61,5 +62,5 @@ def test_card_tests_collect_without_jax(tmp_path):
     n_brief = sum("test_torch_brief.py" in i for i in ids)
     assert n_domain == len(domain.CARD_POINTS)
     assert n_brief == 2 + len(brief.PATCH_CARD_WINS)
-    assert sum("test_torch_stream_card.py" in i for i in ids) == 1
-    assert len(ids) == 1 + n_brief + n_domain + 1
+    assert sum("test_torch_stream_card.py" in i for i in ids) == 2
+    assert len(ids) == 1 + n_brief + n_domain + 2

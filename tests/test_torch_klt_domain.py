@@ -375,10 +375,15 @@ def test_k1_unconverged_slots_spread_in_the_reference(jx, win, L, departs,
     on the CPU), the Pallas kernel in interpret mode and the port's plain
     version agree to FLOW_TOL on the converged slots (measured 3.05e-5 px
     at both points) but at window 21 and 5 levels differ by more on such a
-    slot (measured 1.16e-3 px): so the card's tests hold those slots to
-    FLOW_TOL_UNCONVERGED, the others to FLOW_TOL. At window 46 and 2
-    levels (the first window of 16 template taps a thread in the
-    runtime-window variant) the two differ by 1.22e-4 px there."""
+    slot on one host (measured 1.16e-3 px), by less on another (5.95e-4
+    px on an AVX-512 host): the size of that spread is the host's
+    rounding, so the card's tests hold those slots to
+    FLOW_TOL_UNCONVERGED, the others to FLOW_TOL. What makes it a spread
+    of float32 and not a fault of either side: there, each lies within
+    FLOW_TOL_UNCONVERGED of the plain version run in float64 on the same
+    inputs. At window 46 and 2 levels (the first window of 16 template
+    taps a thread in the runtime-window variant) the two differ by
+    1.22e-4 px there."""
     from vins_tpu_torch import default_config
     c = _chip_smoke()
     pyr0, g0, pyr1, _, pts, valid, _ = c.frame_pair(
@@ -397,7 +402,14 @@ def test_k1_unconverged_slots_spread_in_the_reference(jx, win, L, departs,
     assert int((ok & (runs[-1] == ITERS)).sum()) >= n_unconverged
     assert conv <= FLOW_TOL
     if departs:
-        assert FLOW_TOL < unconv <= FLOW_TOL_UNCONVERGED
+        assert unconv <= FLOW_TOL_UNCONVERGED
+        f64 = lambda xs: [x.double() for x in xs]
+        p64, _, _ = klt_cuda.track_pyramid_plain(
+            f64(pyr0), [tuple(f64(g)) for g in g0], f64(pyr1), pts.double(),
+            valid, win, ITERS, EPS)
+        for flow in (p.numpy(), np.asarray(p_ref)):
+            _, to64 = _held_flow_err(flow - p64.numpy(), runs, ITERS, ok)
+            assert 0.0 < to64 <= FLOW_TOL_UNCONVERGED
     else:
         assert unconv <= FLOW_TOL
 

@@ -21,7 +21,8 @@ import torch
 
 from conftest import render_cached
 from test_torch_stream import (BLOCK, BOOT, CFG, F, SEED, TCFG, TRAJ,
-                               _rot_err, jax_ransac_noise)
+                               _rot_err, carry_priors, check_carried_priors,
+                               jax_ransac_noise)
 
 from vins_tpu_torch import pipeline as t_pipe
 from vins_tpu_torch.core.preintegration import ImuChunk
@@ -69,6 +70,11 @@ def _systems(seq, tseq, cur):
     return sys_j, sys_t, (j_pipe.init_mod, "initialize", gt_initialize)
 
 
+def _j_pipe():
+    from vins_tpu import pipeline as j_pipe
+    return j_pipe
+
+
 def _inputs():
     seq, imgs = render_cached(CFG, n_frames=N_FRAMES, seed=SEED,
                               frame_dt=1.0 / 30.0, traj_kwargs=TRAJ,
@@ -101,6 +107,7 @@ def interactive():
     sys_j, sys_t, patch = _systems(seq, tseq, cur)
     mp = pytest.MonkeyPatch()
     mp.setattr(*patch)
+    carried = carry_priors(mp, _j_pipe(), TCFG)
     runs, jax_prior_ok = [], None
     try:
         for sys_ in (sys_j, sys_t):
@@ -136,7 +143,7 @@ def interactive():
             runs.append((injected, outs))
     finally:
         mp.undo()
-    return sys_j, sys_t, runs, jax_prior_ok, np.asarray(seq.p)
+    return sys_j, sys_t, runs, jax_prior_ok, np.asarray(seq.p), carried
 
 
 @pytest.fixture(scope="module")
@@ -200,6 +207,7 @@ def streamed():
     sys_t._fail_reset = reset_t
     mp = pytest.MonkeyPatch()
     mp.setattr(*patch)
+    carried = carry_priors(mp, _j_pipe(), TCFG)
     try:
         outs_j = sys_j.process_stream(jnp.asarray(imgs), chunks_j,
                                       block=BLOCK,
@@ -211,7 +219,7 @@ def streamed():
     finally:
         mp.undo()
     return (sys_j, sys_t, bad, outs_j, outs_t, drawn[0], np.asarray(seq.p),
-            after_reset)
+            after_reset, carried)
 
 
 def _compare(sys_j, sys_t, outs_j, outs_t, bad, gt, upto=None):
@@ -253,24 +261,19 @@ def test_interactive_failure_recovery_matches_jax(interactive):
     frame, re-anchored first pose (its distance to the last good pose
     within 5 mm of the JAX one's, and within the camera's path between
     them) and trajectory length; every frame's pose to
-    5e-3 m / 5e-3 rad, as test_torch_stream.py, up to the first backend
-    frame after the re-initialization. From there on only where the
-    reference's re-initialized window has a finite prior: on this
-    sequence its bootstrap prior comes out NaN (both ridge Cholesky
-    factorizations of an indefinite float32 Schur complement fail, a
-    fault of the reference, ROADMAP Queue 3), its solves are rejected,
-    and the port, which takes the eigen-sqrt there on purpose
-    (tests/test_torch_backend.py::test_info_to_sqrt_matches_jax_or_falls_back),
-    parts from it; the port's poses must stay finite."""
+    5e-3 m / 5e-3 rad, as test_torch_stream.py, on every frame. Both
+    bootstrap priors and every later one are the port's in both packages
+    (test_torch_stream.carry_priors): the reference's own re-initialized
+    prior on this sequence is NaN or the 100x ridge by the host (both
+    ridge Cholesky factorizations of an indefinite float32 Schur
+    complement can fail, ROADMAP item 31), and the carried ones hold the
+    reference's own wherever that is finite (check_carried_priors)."""
     (sys_j, sys_t, ((inj_j, outs_j), (inj_t, outs_t)), prior_ok,
-     gt) = interactive
+     gt, carried) = interactive
     assert inj_j == inj_t is not None
-    reinit = next(k for k in range(inj_j + 1, N_FRAMES)
-                  if outs_j[k].initialized)
-    first_backend = next(k for k in range(reinit + 1, N_FRAMES)
-                         if (k - reinit) % CFG.freq == 0)
-    sj = _compare(sys_j, sys_t, outs_j, outs_t, inj_j, gt,
-                  upto=None if prior_ok else first_backend)
+    assert prior_ok
+    sj = _compare(sys_j, sys_t, outs_j, outs_t, inj_j, gt)
+    check_carried_priors(carried)
     assert sj[4] == N_FRAMES     # every interactive frame is recorded
     assert not sys_t.boot and sys_t.initialized
 
@@ -283,8 +286,10 @@ def test_streamed_failure_discards_the_block_in_flight(streamed):
     Nothing of the discarded block survives the reset: the frame counter,
     the pending IMU chunk, the loop mirrors and the pnp window start
     fresh, as in the JAX package."""
-    sys_j, sys_t, bad, outs_j, outs_t, drawn, gt, after_reset = streamed
+    (sys_j, sys_t, bad, outs_j, outs_t, drawn, gt, after_reset,
+     carried) = streamed
     sj = _compare(sys_j, sys_t, outs_j, outs_t, bad, gt)
+    check_carried_priors(carried)
     assert after_reset == dict(
         frame_idx=0, kf_count=0, pending_chunk=None, loop_dev=None,
         anchor_dev=None, anchor_live=False, pending_loop=None,

@@ -8,14 +8,17 @@ RANSAC noise is replayed from the JAX tracker's key chain into the port.
 Both sides use klt_eps = 0: the JAX package's CPU path runs a fixed LK
 iteration count, which the port's kernel semantics equal at eps = 0.
 
-On this scene the bootstrap prior's weakest directions are float32
-round-off in both packages: the Schur complement that both form with an
-eigen-pseudo-inverse has a least eigenvalue that moves between -3 and
--45 under track changes of 2e-4 px, on both sides of the 100x ridge at
-30.1 past which the reference's prior is NaN and the port's the eigen
-fallback (test_bootstrap_schur_spreads_in_both_packages). At the shipped
-klt_eps the reference's is NaN; test_torch_stream_shipped.py carries the
-port's into it (carry_bootstrap_priors).
+The reference goes on from the port's priors (carry_priors). Its own are
+its float32 round-off's (ROADMAP item 31): the Schur complement that it
+forms with an eigen pseudo-inverse has a bootstrap least eigenvalue that
+moves between -5 and -45 under track changes of 2e-4 px, on both sides
+of the 100x ridge at 30.1 past which its prior is NaN, and the host's
+instruction set picks the side (tools/reference_host_spread.py: the 100x
+ridge on an AVX-512 host, NaN with XLA capped at AVX2). The port forms
+the complement through a Cholesky factor of the dropped block and holds
+its bootstrap prior at the 100x ridge (marginalize_old), and every prior
+it carries holds the reference's own of the same inputs, and its Schur
+complement the float64 one (check_carried_priors).
 """
 import contextlib
 
@@ -76,16 +79,157 @@ def _rot_err(qa, qb):
     return 2.0 * np.arccos(min(d, 1.0))
 
 
-def carry_bootstrap_priors(mp, j_pipe, carry=True):
-    """Patch both packages' BackendState.bootstrap for one lockstep: each
-    records the states it makes (the port its arguments too) and, with
-    carry, the reference goes on with the port's prior of the same index
-    (the port must bootstrap first). Returns {"t": [port states],
-    "t_args": [...], "j": [reference states]}, each state as its own
-    bootstrap made it."""
-    rec = dict(t=[], t_args=[], j=[])
+def port_bootstrap(tcfg, args, boot, dtype=torch.float32):
+    """The port's BackendState.bootstrap (boot, as it is before a patch)
+    of the reference's bootstrap arguments (window, feats, chunks, ext,
+    gravity), through numpy, every float tensor in dtype."""
+    from vins_tpu_torch.core.factors import Extrinsics
+    from vins_tpu_torch.core.preintegration import ImuChunk
+    from vins_tpu_torch.core.state import FeatureTable, WindowState
+
+    as_t = lambda T, tree: T(*[_as_dtype(torch.as_tensor(np.array(x)),
+                                         dtype)
+                               for x in jax.device_get(tree)])
+    window, feats, chunks, ext, gravity = args
+    return boot(tcfg, as_t(WindowState, window), as_t(FeatureTable, feats),
+                as_t(ImuChunk, chunks), as_t(Extrinsics, ext),
+                torch.as_tensor(np.array(gravity)).to(dtype))
+
+
+def _as_dtype(x: torch.Tensor, dtype) -> torch.Tensor:
+    return x.to(dtype) if torch.is_floating_point(x) else x
+
+
+def _as_port(tree, dtype=torch.float32):
+    """A reference NamedTuple tree (numpy leaves, None kept) as the port's
+    types of the same names, every float tensor in dtype."""
+    from vins_tpu_torch.core import factors, preintegration, solver, state
+    kinds = {T.__name__: T for T in (
+        solver.WindowProblem, solver.LoopProblem,
+        preintegration.Preintegration, state.PriorFactor, state.FeatureTable,
+        state.WindowState, factors.Extrinsics)}
+    if tree is None:
+        return None
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return kinds[type(tree).__name__](*[_as_port(x, dtype)
+                                            for x in tree])
+    return _as_dtype(torch.as_tensor(np.array(tree)), dtype)
+
+
+def _information_gap(t_prior, j_prior) -> tuple:
+    """(JᵀJ gap over the reference's largest entry, Jᵀr gap over its
+    largest entry or 1e-3) of two priors in float64;
+    tests/test_torch_backend.py's _same_information(rtol) holds a prior to
+    rtol and 10 rtol of these."""
+    Ht, gt = _normal_eqs(t_prior)
+    Hj, gj = _normal_eqs(j_prior)
+    if not (np.all(np.isfinite(Hj)) and np.all(np.isfinite(gj))):
+        return float("nan"), float("nan")
+    return (float(np.abs(Ht - Hj).max() / np.abs(Hj).max()),
+            float(np.abs(gt - gj).max() / max(np.abs(gj).max(), 1e-3)))
+
+
+def _np_schur(Arr, Arm, Amm, g_r, g_m):
+    """marginalization._schur's complement from its definition, in float64
+    numpy and by LU: the dropped block scaled to a unit diagonal and
+    ridged at its first ridge there (SCHUR_RIDGES)."""
+    Ams = 0.5 * (Amm + Amm.T)
+    d = np.diag(Ams)
+    s = np.where(d > 0, 1.0 / np.sqrt(np.maximum(d, 1e-300)), 1.0)
+    As = Ams * np.outer(s, s) + t_marg.SCHUR_RIDGES[0] * np.eye(len(d))
+    X = np.linalg.solve(As, np.concatenate([Arm.T, g_m[:, None]], 1)
+                        * s[:, None])
+    P = Arm * s[None, :]
+    return Arr - P @ X[:, :-1], g_r - P @ X[:, -1]
+
+
+def _schur_gap(form) -> tuple:
+    """(prior, ΔH, ΔH_in, Δg). form(dtype) forms one port prior of the
+    reference's inputs with every float in dtype; the float32 prior comes
+    back, and its Schur complement (_schur's output) is held against
+    _np_schur of the float64 run's _schur inputs: ΔH = max
+    |D^-½ (H − H64) D^-½| with D the diagonal of that complement, ΔH_in
+    the same with D that of the kept block before the elimination (Arr),
+    and Δg = max |D^-½ (g − g64)| over max |D^-½ g64|. The float64 run
+    shares the port's assembly of the information, not its elimination."""
+    calls, inner = [], t_marg._schur
+
+    def probe(*args):
+        out = inner(*args)
+        calls.append((args, out))
+        return out
+
+    t_marg._schur = probe
+    try:
+        prior = form(torch.float32)
+        form(torch.float64)
+    finally:
+        t_marg._schur = inner
+    (_, (H, g)), (args64, _) = calls
+    args64 = [x.numpy() for x in args64]
+    H64, g64 = _np_schur(*args64)
+    dH, dg = H.double().numpy() - H64, g.double().numpy() - g64
+
+    def scale(d):
+        return 1.0 / np.sqrt(np.maximum(d, 1e-12 * d.max()))
+
+    s, s_in = scale(np.diag(H64)), scale(np.diag(args64[0]))
+    return (prior, float(np.abs(dH * np.outer(s, s)).max()),
+            float(np.abs(dH * np.outer(s_in, s_in)).max()),
+            float(np.abs(dg * s).max() / max(np.abs(g64 * s).max(), 1e-12)))
+
+
+# True while the port forms a prior for the reference (carry_priors):
+# record_branches records the port's own priors only.
+_CARRYING = [False]
+
+
+def carry_priors(mp, j_pipe, tcfg):
+    """Patch both packages for one lockstep. Both BackendState.bootstraps
+    record the states they make (the port its arguments too), and every
+    prior the reference forms is the port's of the reference's own
+    inputs, in whatever order the two systems run: its bootstrap
+    (port_bootstrap) and each marginalization of its backend steps (the
+    port's marginalize_old / marginalize_second_new through a host
+    callback inside its jitted scan). The reference forms its own prior of
+    the same inputs beside each, and rec["carried"] records, prior by
+    prior, how far the carried one lies from it (_information_gap;
+    check_carried_priors holds them), and whether the system discards it:
+    formed in a backend step whose failure detection fired, or after one
+    before the next bootstrap (a discarded block).
+
+    Its own are its float32 round-off's (ROADMAP item 31;
+    tools/reference_host_spread.py): its eigen-form Schur complement
+    leaves the bootstrap's weakest directions anywhere from -5 to -54
+    against a 100x ridge of 30, so the host decides whether that prior
+    factorizes on the 100x ridge or comes out NaN (and every later one with
+    it), and in the later priors it moves the information of the weakest
+    (bias) directions enough to part the streams by more than the
+    lockstep's bounds (5.7e-3 m 35 frames after test_torch_stream_depth2.
+    py's state carry, 5.5e-4 m with the carry). Returns {"t": [port
+    states], "t_args": [...], "j": [reference states as its own bootstrap
+    made them], "c": [the bootstrap priors carried into it], "carried":
+    [(kind, JᵀJ gap, Jᵀr gap, discarded) of every later prior], "schur":
+    [(kind, ΔH, ΔH_in, Δg, discarded) of every carried prior, each
+    bootstrap's included: its Schur complement against float64,
+    _schur_gap]}."""
+    from vins_tpu.core import estimator as j_est
+    from vins_tpu.core import marginalization as j_marg
+
+    rec = dict(t=[], t_args=[], j=[], c=[], carried=[], schur=[])
+    # The failure flag of the backend step being traced, and whether the
+    # reference has failed since its last bootstrap.
+    fails, failed = [], [False]
+    own_failure = j_est._failure_detection
+
+    def failure(*args):
+        fails.append(own_failure(*args))
+        return fails[-1]
+
     t_boot = t_pipe.BackendState.bootstrap
     j_boot = j_pipe.BackendState.bootstrap
+    own = dict(marginalize_old=j_marg.marginalize_old,
+               marginalize_second_new=j_marg.marginalize_second_new)
 
     def port(cfg, *args):
         est = t_boot(cfg, *args)
@@ -94,17 +238,93 @@ def carry_bootstrap_priors(mp, j_pipe, carry=True):
         return est
 
     def ref(cfg, *args):
-        est = j_boot(cfg, *args)
+        carried = {k: getattr(j_marg, k) for k in own}
+        for k, f in own.items():
+            setattr(j_marg, k, f)
+        try:
+            est = j_boot(cfg, *args)
+        finally:
+            for k, f in carried.items():
+                setattr(j_marg, k, f)
         rec["j"].append(est)
-        if carry:
-            src = interop.to_numpy(rec["t"][len(rec["j"]) - 1].prior)
-            est = est._replace(prior=type(est.prior)(
-                *[jnp.asarray(x) for x in src]))
-        return est
+        failed[0] = False
+        prior, *gaps = _schur_gap(
+            lambda dtype: port_bootstrap(tcfg, args, t_boot, dtype).prior)
+        rec["c"].append(prior)
+        rec["schur"].append(("bootstrap", *gaps, False))
+        return est._replace(prior=type(est.prior)(
+            *[jnp.asarray(x) for x in interop.to_numpy(prior)]))
+
+    def carried(kind):
+        def marginalize(state, inputs, cfg):
+            mine = own[kind](state, inputs, cfg)
+
+            def host(state, inputs, mine, fail):
+                _CARRYING[0] = True
+                try:
+                    prior, *gaps = _schur_gap(
+                        lambda dtype: getattr(t_marg, kind)(
+                            _as_port(state, dtype), _as_port(inputs, dtype),
+                            tcfg))
+                finally:
+                    _CARRYING[0] = False
+                prior = interop.to_numpy(prior)
+                failed[0] = failed[0] or bool(fail)
+                rec["carried"].append((kind, *_information_gap(prior, mine),
+                                       failed[0]))
+                rec["schur"].append((kind, *gaps, failed[0]))
+                return tuple(prior)
+
+            shapes = tuple(jax.ShapeDtypeStruct(x.shape, x.dtype)
+                           for x in mine)
+            return type(mine)(*jax.pure_callback(host, shapes, state,
+                                                 inputs, mine, fails[-1]))
+        return marginalize
 
     mp.setattr(t_pipe.BackendState, "bootstrap", staticmethod(port))
     mp.setattr(j_pipe.BackendState, "bootstrap", staticmethod(ref))
+    mp.setattr(j_est, "_failure_detection", failure)
+    for kind in own:
+        mp.setattr(j_marg, kind, carried(kind))
     return rec
+
+
+# The carried priors' Schur complements against float64 (_schur_gap's
+# ΔH_in, ΔH, Δg). The largest readings over every lockstep scene, with XLA
+# at its default and capped at AVX2 (tools/reference_host_spread.py):
+# 2.8e-5, 0.19 and 5.8e-4; the reference's eigen form in _schur reads
+# 2.3e-4 to 1.2e-3 ΔH_in and 0.28 to 0.73 ΔH on test_torch_stream.py's
+# scene. ΔH is float32's resolution of the accelerometer bias direction:
+# on that scene its information in the bootstrap complement, 60, is a
+# difference of entries near 1e8 (the bias random walk), each known to 8
+# (ΔH 0.13).
+SCHUR_IN_TOL, SCHUR_TOL, SCHUR_G_TOL = 1e-4, 0.5, 5e-3
+
+
+def check_carried_priors(rec):
+    """Every later prior carried into the reference that the system keeps
+    holds the reference's own prior of the same inputs as
+    tests/test_torch_backend.py::test_backend_step_matches_jax holds the
+    prior of one backend step (_same_information at 2e-3: JᵀJ to 2e-3 of
+    the largest entry, Jᵀr to 2e-2; the largest readings 1.6e-3 and
+    2.1e-3): the carry stands in for the reference's round-off, not for a
+    fault of the port's marginalization. Priors the system discards (a
+    failed step's, a discarded block's) are formed on the predicted,
+    unsolved window and are not held to the reference's. The Schur
+    complement of every carried prior, the bootstrap's and the discarded
+    ones too, holds its float64 value from the same inputs (_schur_gap):
+    to SCHUR_IN_TOL of the kept block's own information before the
+    elimination, SCHUR_TOL of the complement's, and Jᵀr to SCHUR_G_TOL;
+    this hold sees the weak (bias) directions that the information gap,
+    relative to the largest entry, does not."""
+    kept = [c for c in rec["carried"] if not c[3]]
+    assert kept and all(np.isfinite(c[1]) for c in kept), rec["carried"]
+    for kind, gap_h, gap_g, _ in kept:
+        assert gap_h <= 2e-3 and gap_g <= 2e-2, (kind, gap_h, gap_g)
+    assert len(rec["schur"]) == len(rec["carried"]) + len(rec["c"])
+    for kind, gap_h, gap_in, gap_g, _ in rec["schur"]:
+        assert (gap_in <= SCHUR_IN_TOL and gap_h <= SCHUR_TOL
+                and gap_g <= SCHUR_G_TOL), (kind, gap_in, gap_h, gap_g)
 
 
 BRANCHES = ("ridge", "ridge_100x", "past_both")
@@ -133,6 +353,8 @@ def record_branches(mp, rec):
         return j_inner(H, g, eps, method)
 
     def port(H, g, eps, method="chol"):
+        if _CARRYING[0]:
+            return t_inner(H, g, eps, method)
         Hs = 0.5 * (H + H.T)
         I = torch.eye(Hs.shape[0], dtype=Hs.dtype)
         ridge = eps + 1e-6 * torch.max(torch.abs(torch.diagonal(Hs)))
@@ -160,13 +382,12 @@ def run_port(tcfg, imgs, noise):
         ts=tseq.timestamps.numpy(), gumbel=torch.as_tensor(noise))
 
 
-def run_streams(cfg, tcfg, tpu_branch=False, carry=False, branches=False):
+def run_streams(cfg, tcfg, tpu_branch=False):
     """(seq, outs_j, outs_t, rec): both systems over N_FRAMES of the
-    scene, the port first; with carry the reference goes on from the
-    port's bootstrap prior (rec: carry_bootstrap_priors'), with branches
-    rec also holds record_branches'. tpu_branch runs the JAX package's TPU
-    branch of the tracker (ops/klt.py's _on_tpu, the Pallas kernels in
-    interpret mode), only while the JAX system runs."""
+    scene, the port first, the reference going on from the port's priors
+    (rec: carry_priors' and record_branches'). tpu_branch runs the JAX
+    package's TPU branch of the tracker (ops/klt.py's _on_tpu, the Pallas
+    kernels in interpret mode), only while the JAX system runs."""
     from jax.experimental.pallas import tpu as pltpu
     from vins_tpu.core import feature_manager as j_fm
     from vins_tpu.core.initialization import InitResult, InitStatus
@@ -195,9 +416,8 @@ def run_streams(cfg, tcfg, tpu_branch=False, carry=False, branches=False):
                           InitStatus.SUCCESS)
 
     mp = pytest.MonkeyPatch()
-    rec = carry_bootstrap_priors(mp, j_pipe, carry)
-    if branches:
-        record_branches(mp, rec)
+    rec = carry_priors(mp, j_pipe, tcfg)
+    record_branches(mp, rec)
     try:
         outs_t = run_port(tcfg, imgs, noise)
         mp.setattr(j_pipe.init_mod, "initialize", gt_initialize)
@@ -249,37 +469,64 @@ def streams():
 def test_torch_stream_matches_jax_per_frame(streams):
     """Per-frame parity over the bootstrap and two full blocks
     (check_per_frame)."""
-    _, outs_j, outs_t, _ = streams
+    _, outs_j, outs_t, rec = streams
     check_per_frame(outs_j, outs_t)
+    check_carried_priors(rec)
+
+
+def float64_bootstrap(tcfg, args):
+    """The port's BackendState.bootstrap of the same (port) arguments with
+    every float tensor in float64."""
+    from vins_tpu_torch.core import estimator as t_est
+    dbl = lambda t: type(t)(*[x.double() if torch.is_floating_point(x)
+                              else x for x in t])
+    window, feats, chunks, ext, gravity = args
+    return t_est.BackendState.bootstrap(tcfg, dbl(window), dbl(feats),
+                                        dbl(chunks), dbl(ext),
+                                        gravity.double())
+
+
+def _normal_eqs(prior):
+    J = np.asarray(prior.J, np.float64)
+    return J.T @ J, J.T @ np.asarray(prior.r, np.float64)
 
 
 def test_bootstrap_prior_matches_jax_information(streams):
-    """The port's bootstrap prior on this scene holds the reference's
-    information: JᵀJ to 1e-3 of its largest entry and Jᵀr as
-    tests/test_torch_backend.py's _same_information holds a prior; both
-    took the 100x-ridge Cholesky."""
+    """The port's bootstrap prior on this scene holds JᵀJ to 1e-3 of the
+    largest entry and Jᵀr as tests/test_torch_backend.py's
+    _same_information holds a prior: against the reference's own prior
+    where that is finite and on the port's branch, the 100x ridge (the
+    port holds every direction there, marginalize_old's bootstrap); else
+    against the port's prior of the same inputs in float64, and the
+    reference's took neither ridge and is NaN. Which the reference takes
+    is its float32 round-off's: the 100x ridge on an AVX-512 host, NaN
+    with XLA capped at AVX2 (tools/reference_host_spread.py)."""
     _, _, _, rec = streams
-
-    def normal_eqs(prior):
-        J = np.asarray(prior.J, np.float64)
-        return J.T @ J, J.T @ np.asarray(prior.r, np.float64)
-
-    Hj, gj = normal_eqs(jax.device_get(rec["j"][0].prior))
-    Ht, gt = normal_eqs(interop.to_numpy(rec["t"][0].prior))
+    Ht, gt = _normal_eqs(interop.to_numpy(rec["t"][0].prior))
+    own_j = jax.device_get(rec["j"][0].prior)
+    if rec["branches_j"][0] == "ridge_100x":
+        Hj, gj = _normal_eqs(own_j)
+    else:
+        assert rec["branches_j"][0] == "past_both"
+        assert not np.all(np.isfinite(np.asarray(own_j.J)))
+        Hj, gj = _normal_eqs(interop.to_numpy(float64_bootstrap(
+            TCFG, rec["t_args"][0]).prior))
     assert np.all(np.isfinite(Hj))
     assert np.abs(Ht - Hj).max() <= 1e-3 * np.abs(Hj).max()
     assert np.abs(gt - gj).max() <= 1e-2 * max(np.abs(gj).max(), 1e-3)
 
 
 def test_bootstrap_schur_spreads_in_both_packages(streams):
-    """A fault of the reference that the port keeps (ROADMAP Queue 3, the
-    NaN marginalization prior): the bootstrap's Schur complement H_keep on
-    this scene, from the port's bootstrap inputs with the observations
-    moved by N(0, 1e-6) in normalized coordinates (2e-4 px, a tenth of
-    what the LK early exit at klt_eps = 0.01 moves them). In both
-    packages its least eigenvalue spreads over more than 10, and for some
-    draw past minus the 100x ridge: there the reference's prior is NaN
-    and the port's the eigen fallback, finite in every draw."""
+    """ROADMAP item 31: the bootstrap's Schur complement H_keep on this
+    scene, from the port's bootstrap inputs with the observations moved
+    by N(0, 1e-6) in normalized coordinates (2e-4 px, a tenth of what the
+    LK early exit at klt_eps = 0.01 moves them), 8 draws. The reference's
+    eigen-pseudo-inverse form spreads its least eigenvalue over more than
+    10, and for some draw past minus the 100x ridge, where its prior is
+    NaN. The port's Cholesky form (with the bootstrap hold) stays within
+    1e-3 of the largest entry of the same complement formed in float64,
+    its least eigenvalue within the ridge of the float64 one, and its
+    factorization finite in every draw."""
     from vins_tpu.core import estimator as j_est
     from vins_tpu.core import marginalization as j_marg
     from vins_tpu.core.factors import Extrinsics as JExt
@@ -300,42 +547,46 @@ def test_bootstrap_schur_spreads_in_both_packages(streams):
                                for x in interop.to_numpy(tree)])
     f_np = interop.to_numpy(feats)
     rng = np.random.default_rng(0)
-    keeps = dict(j=[], t=[])
+    keeps = dict(j=[], t=[], t64=[])
     mp = pytest.MonkeyPatch()
     mp.setattr(j_marg, "_info_to_sqrt", probe)
     mp.setattr(t_marg, "_info_to_sqrt", probe)
     try:
         boot_j = jax.jit(lambda w, f, c: j_est.BackendState.bootstrap(
             CFG, w, f, c, as_j(JExt, ext), jnp.asarray(gravity.numpy())))
-        for k in range(6):
+        for k in range(8):
             obs = f_np.obs + (1e-6 * (k > 0) * rng.standard_normal(
                 f_np.obs.shape)).astype(np.float32)
             pj = boot_j(as_j(JWindow, window),
                         JFeats(*[jnp.asarray(x)
                                  for x in f_np._replace(obs=obs)]),
                         as_j(JChunk, chunks)).prior
-            pt = t_est.BackendState.bootstrap(
-                TCFG, window, feats._replace(obs=torch.as_tensor(obs)),
-                chunks, ext, gravity).prior
+            args = (window, feats._replace(obs=torch.as_tensor(obs)),
+                    chunks, ext, gravity)
+            pt = t_est.BackendState.bootstrap(TCFG, *args).prior
+            p64 = float64_bootstrap(TCFG, args).prior
             keeps["j"].append((pj.J[:n, :n], pj.r[:n]))
             keeps["t"].append((pt.J[:n, :n], pt.r[:n]))
+            keeps["t64"].append(p64.J[:n, :n].numpy())
     finally:
         mp.undo()
 
     def least(H):
         Hs = 0.5 * (H + H.T)
-        r100 = 100.0 * (eps + 1e-6 * np.abs(np.diag(Hs)).max())
-        return np.linalg.eigvalsh(Hs)[0], r100
+        ridge = eps + 1e-6 * np.abs(np.diag(Hs)).max()
+        return np.linalg.eigvalsh(Hs)[0], ridge
 
     ref = np.array([least(np.asarray(H, np.float64)) for H, _ in keeps["j"]])
-    port = np.array([least(H.double().numpy()) for H, _ in keeps["t"]])
-    for side in (ref, port):
-        assert np.ptp(side[:, 0]) > 10.0, side
-        assert np.any(side[:, 0] < -side[:, 1]), side
-    past = int(np.argmax(ref[:, 0] < -ref[:, 1]))
+    assert np.ptp(ref[:, 0]) > 10.0, ref
+    assert np.any(ref[:, 0] < -100.0 * ref[:, 1]), ref
+    past = int(np.argmax(ref[:, 0] < -100.0 * ref[:, 1]))
     assert not np.all(np.isfinite(np.asarray(sqrt_j(*keeps["j"][past],
                                                     eps)[0])))
-    for H, g in keeps["t"]:
+    for (H, g), H64 in zip(keeps["t"], keeps["t64"]):
+        H32 = H.double().numpy()
+        assert np.abs(H32 - H64).max() <= 1e-3 * np.abs(H64).max()
+        (l32, _), (l64, ridge) = least(H32), least(H64)
+        assert abs(l32 - l64) <= ridge, (l32, l64, ridge)
         assert all(torch.all(torch.isfinite(x)) for x in sqrt_t(H, g, eps))
 
 

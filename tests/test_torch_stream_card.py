@@ -8,11 +8,14 @@ shipped setting (test_torch_stream_shipped.py), the card's stream goes
 on from the CPU's bootstrap prior, and poses are compared up to the
 first solve that uses a prior the two devices factorized on different
 branches. Not on test_torch_stream.py's 192x256 window-5 scene: there the
-eigen-form Schur complement's round-off moves the prior's weakest
-directions far enough to part an H100's stream from the CPU's by 8.3e-3
-m in 40 frames with every prior on the same branch (ROADMAP Queue 3).
+eigen-form Schur complement that the port had until ROADMAP item 31 was
+repaired moved the prior's weakest directions far enough to part an
+H100's stream from the CPU's by 8.3e-3 m in 40 frames with every prior
+on the same branch.
 Imports no JAX: chip_smoke.py's phase 12 runs it on the card with the
-other gpu cases (chip_smoke.CARD_TEST_FILES); elsewhere it skips."""
+other gpu cases (chip_smoke.CARD_TEST_FILES); elsewhere it skips.
+test_bootstrap_schur_matches_float64 holds the bootstrap's Schur
+complement to its float64 value, on the CPU and on the card."""
 import os
 
 import numpy as np
@@ -95,8 +98,7 @@ def test_stream_on_card_matches_cpu():
     through its plain version, from the CPU's bootstrap prior. Equal
     decisions and n_tracked within 2 on every frame; every pose within
     5e-3 m and 5e-3 rad up to the first solve that uses a prior the two
-    devices factorized on different branches (round-off of the eigen-form
-    Schur complement, as test_torch_stream_shipped.parted_at), at least
+    devices factorized on different branches of _info_to_sqrt, at least
     the bootstrap and the first backend frame's block."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the tracking kernel has no CPU mode")
@@ -135,3 +137,62 @@ def test_stream_on_card_matches_cpu():
           f"{upto}; prior branches CPU {br_c}, card {br_g}): largest "
           f"position difference {max(dp):.3g} m, rotation {max(dr):.3g} "
           f"rad")
+
+
+def _phase9_window():
+    """chip_smoke.py phase 9's first stream's window: make_synthetic_window
+    at default_config(), seed 0, 300 landmarks, 0.3 px noise."""
+    return t_syn.make_synthetic_window(TCFG, n_landmarks=300, seed=0,
+                                       noise_px=0.3, device="cpu")
+
+
+def _bootstrap_keep(device, dtype, obs):
+    """The bootstrap's kept information H_keep (as _info_to_sqrt receives
+    it, the hold included) of _phase9_window with its observations
+    replaced by obs, on device in dtype, as float64 numpy."""
+    from vins_tpu_torch.core.estimator import BackendState
+    w = _phase9_window()
+    cast = lambda t: type(t)(*[(x.to(dtype) if torch.is_floating_point(x)
+                                else x).to(device) for x in t])
+    feats = w.feats._replace(obs=obs)
+    keep, sqrt = [], t_marg._info_to_sqrt
+    t_marg._info_to_sqrt = lambda H, g, eps, method="chol": keep.append(
+        H.detach().double().cpu().numpy()) or sqrt(H, g, eps, method)
+    try:
+        BackendState.bootstrap(TCFG, cast(w.state), cast(feats),
+                               cast(w.chunks), cast(w.ext),
+                               w.gravity.to(dtype).to(device))
+    finally:
+        t_marg._info_to_sqrt = sqrt
+    return keep[0]
+
+
+@pytest.mark.parametrize("device", [
+    "cpu", pytest.param("cuda", marks=pytest.mark.gpu)])
+def test_bootstrap_schur_matches_float64(device):
+    """ROADMAP item 31: the bootstrap's Schur complement, formed through
+    the Cholesky factor of the dropped block (marginalization._schur), in
+    float32 on the device against the same inputs in float64 on the CPU,
+    with the observations moved by N(0, 1e-6) in normalized coordinates
+    (2e-4 px) in 8 draws: within 1e-3 of the float64 complement's largest
+    entry, its least eigenvalue within the ridge of the float64 one (the
+    reference's eigen pseudo-inverse spreads it by tens on such draws,
+    tests/test_torch_stream.py::
+    test_bootstrap_schur_spreads_in_both_packages)."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device(device, 0) if device == "cuda" else device
+    eps = TCFG.solver.eig_eps
+    rng = np.random.default_rng(0)
+    obs0 = _phase9_window().feats.obs
+    least = lambda H: np.linalg.eigvalsh(0.5 * (H + H.T))[0]
+    for k in range(8):
+        obs = obs0 + torch.as_tensor(
+            (1e-6 * (k > 0) * rng.standard_normal(obs0.shape)).astype(
+                np.float32))
+        H32 = _bootstrap_keep(dev, torch.float32, obs)
+        H64 = _bootstrap_keep("cpu", torch.float64, obs)
+        ridge = eps + 1e-6 * np.abs(np.diag(H64)).max()
+        assert np.abs(H32 - H64).max() <= 1e-3 * np.abs(H64).max(), k
+        assert abs(least(H32) - least(H64)) <= ridge, (k, least(H32),
+                                                       least(H64), ridge)

@@ -22,7 +22,8 @@ import pytest
 import torch
 
 from conftest import render_cached
-from test_torch_stream import _rot_err, jax_ransac_noise
+from test_torch_stream import (_rot_err, carry_priors, check_carried_priors,
+                               jax_ransac_noise)
 from test_torch_stream_loop import (BLOCK, CFG, F, N_FIRST, SEED, TCFG,
                                     _PACK_COLS, _carry_state)
 
@@ -117,6 +118,7 @@ def streams():
 
     mp = pytest.MonkeyPatch()
     mp.setattr(j_pipe.init_mod, "initialize", gt_initialize)
+    carried = carry_priors(mp, j_pipe, TCFG)
     sys_j._refine_init = lambda w, fe, ch: (w, 0.0)
     imgs_t = torch.as_tensor(imgs)
 
@@ -149,6 +151,7 @@ def streams():
     finally:
         mp.undo()
     return dict(first_j=first_j, first_t=first_t, outs_j=outs_j,
+                carried=carried,
                 outs_t=outs_t, sys_j=sys_j, sys_t=sys_t,
                 flags_j=np.concatenate(log_j["flags"]),
                 flags_t=np.concatenate(log_t["flags"]),
@@ -219,6 +222,7 @@ def test_depth2_matches_jax_per_frame(streams):
         n_corr += int(np.linalg.norm(np.asarray(oj.p) - np.asarray(oj.p_raw))
                       > 1e-6)
     assert n_corr >= 1, "no published pose carries a drift correction"
+    check_carried_priors(s["carried"])
 
 
 def _carry_loop(lj, lt):

@@ -26,7 +26,8 @@ import pytest
 import torch
 
 from conftest import render_cached
-from test_torch_stream import _rot_err, jax_ransac_noise
+from test_torch_stream import (_rot_err, carry_priors, check_carried_priors,
+                               jax_ransac_noise)
 from vins_tpu.config import (CameraConfig, FrontendConfig, LoopConfig,
                              VinsConfig, WindowConfig)
 
@@ -163,6 +164,7 @@ def streams():
 
     mp = pytest.MonkeyPatch()
     mp.setattr(j_pipe.init_mod, "initialize", gt_initialize)
+    carried = carry_priors(mp, j_pipe, TCFG)
     sys_j._refine_init = lambda w, fe, ch: (w, 0.0)
     imgs_t = torch.as_tensor(imgs)
 
@@ -196,6 +198,7 @@ def streams():
     finally:
         mp.undo()
     return dict(seq=seq, first_j=first_j, first_t=first_t, outs_j=outs_j,
+                carried=carried,
                 outs_t=outs_t,
                 sys_j=sys_j, sys_t=sys_t,
                 flags_j=np.concatenate(flags_j),
@@ -268,6 +271,7 @@ def test_torch_stream_loop_matches_jax_per_frame(streams):
     _compare_frames(s["first_j"], s["first_t"], 0)
     n_corr = _compare_frames(s["outs_j"], s["outs_t"], N_FIRST)
     assert n_corr >= 1, "no published pose carries a drift correction"
+    check_carried_priors(s["carried"])
 
 
 @pytest.mark.parametrize("n_sel", [0, 1, 6, 7])

@@ -15,8 +15,10 @@ and rotation difference from the first klt_eps's run and from the
 ground truth), then with --draws N one line on the bootstrap's Schur
 complement from the first run's bootstrap inputs with the observations
 moved by N(0, 1e-6) (normalized coordinates) N-1 times: its least
-eigenvalue in the JAX package (jitted) and in the port. Run it with
-another tree first on PYTHONPATH to measure that tree's port.
+eigenvalue in the JAX package (jitted) and in the port, the port's from
+the same inputs in float64, and the largest gap between the port's
+float32 and float64 complements over the latter's largest entry. Run it
+with another tree first on PYTHONPATH to measure that tree's port.
 """
 import argparse
 import json
@@ -112,7 +114,7 @@ def spread(boot, draws: int) -> dict:
     j_marg._info_to_sqrt = t_marg._info_to_sqrt = probe
     f_np = interop.to_numpy(feats)
     rng = np.random.default_rng(0)
-    ref, port = [], []
+    ref, port, port64, gap64 = [], [], [], []
     try:
         boot_j = jax.jit(lambda w, f, c: j_est.BackendState.bootstrap(
             CFG, w, f, c, as_j(JExt, ext), jnp.asarray(gravity.numpy())))
@@ -123,17 +125,29 @@ def spread(boot, draws: int) -> dict:
                            JFeats(*[jnp.asarray(x)
                                     for x in f_np._replace(obs=obs)]),
                            as_j(JChunk, chunks))
-            est_t = t_est.BackendState.bootstrap(
-                TCFG, window, feats._replace(obs=torch.as_tensor(obs)),
-                chunks, ext, gravity)
+            args = (window, feats._replace(obs=torch.as_tensor(obs)),
+                    chunks, ext, gravity)
+            est_t = t_est.BackendState.bootstrap(TCFG, *args)
+            est_64 = t_est.BackendState.bootstrap(
+                TCFG, *[type(t)(*[x.double() if torch.is_floating_point(x)
+                                  else x for x in t]) for t in args[:4]],
+                gravity.double())
             ref.append(_least(np.asarray(est_j.prior.J,
                                          np.float64)[:n, :n]))
-            port.append(_least(est_t.prior.J.double().numpy()[:n, :n]))
+            H32 = est_t.prior.J.double().numpy()[:n, :n]
+            H64 = est_64.prior.J.numpy()[:n, :n]
+            port.append(_least(H32))
+            port64.append(_least(H64)[0])
+            gap64.append(float(np.abs(H32 - H64).max()
+                               / np.abs(H64).max()))
     finally:
         j_marg._info_to_sqrt, t_marg._info_to_sqrt = j_inner, t_inner
     return dict(draws=draws, ridge_100x=ref[0][1],
                 reference_least=[round(r[0], 4) for r in ref],
-                port_least=[round(p[0], 4) for p in port])
+                port_least=[round(p[0], 4) for p in port],
+                port_float64_least=[round(x, 4) for x in port64],
+                port_ridge=round(port[0][1] / 100.0, 4),
+                port_gap_to_float64=gap64)
 
 
 def main(eps_list, window, levels, draws) -> None:

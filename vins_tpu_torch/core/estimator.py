@@ -83,17 +83,16 @@ class BackendState(NamedTuple):
         frame and slide once, as a normal step's tail does."""
         F = cfg.window.num_frames
         W = F - 1
-        dev = window.p.device
+        dev, dtype = window.p.device, window.p.dtype
         preints = pre_mod.propagate(chunks, window.ba[:W], window.bg[:W],
                                     cfg.imu)
         prob = WindowProblem(
-            feats=feats, preints=preints, prior=PriorFactor.empty(F,
-                                                                  device=dev),
-            ext=ext, gravity=gravity,
+            feats=feats, preints=preints,
+            prior=PriorFactor.empty(F, dtype, dev), ext=ext, gravity=gravity,
             sqrt_info_proj=torch.full((), cfg.camera.focal / 1.5,
-                                      device=dev),
-            frame_free=torch.ones(F, device=dev))
-        prior_new = marg.marginalize_old(window, prob, cfg)
+                                      dtype=dtype, device=dev),
+            frame_free=torch.ones(F, dtype=dtype, device=dev))
+        prior_new = marg.marginalize_old(window, prob, cfg, bootstrap=True)
         feats_new, inv_new = fm.slide_old(window, feats, ext, cfg)
         win_new = marg.slide_state_old(window)._replace(inv_depth=inv_new)
         return BackendState.fresh(cfg, dev)._replace(

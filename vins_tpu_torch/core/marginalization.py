@@ -23,49 +23,98 @@ def _eigh(A: torch.Tensor):
             torch.where(finite, V, float("nan")))
 
 
-def _eig_clamped_pinv(A: torch.Tensor, eps: float) -> torch.Tensor:
-    """Pseudo-inverse with eigenvalues <= eps zeroed
-    (marginalization_factor.cpp:270-284)."""
-    w, V = _eigh(0.5 * (A + A.T))
-    w_inv = torch.where(w > eps, 1.0 / torch.clamp(w, min=eps), 0.0)
-    return (V * w_inv[None, :]) @ V.T
-
-
 def _chol_ok(L: torch.Tensor, info: torch.Tensor) -> torch.Tensor:
     return (info == 0) & torch.all(torch.isfinite(L))
 
 
-# Per-device [3] int64 counts of the priors _info_to_sqrt factorized with
-# the ridge, with the 100x ridge, and through the eigen fallback; None
-# (the default) counts nothing. count_prior_branches() switches it on.
+# The ridges _schur adds in turn to the dropped block scaled to a unit
+# diagonal, and the hold of the bootstrap prior in every kept direction,
+# as a fraction of the largest diagonal entry of its information (the
+# 100x ridge of _info_to_sqrt's "chol"): port departures (ROADMAP item
+# 31).
+SCHUR_RIDGES = (1e-6, 1e-4, 1.0)
+BOOT_HOLD = 1e-4
+
+
+def _schur(Arr: torch.Tensor, Arm: torch.Tensor, Amm: torch.Tensor,
+           g_r: torch.Tensor, g_m: torch.Tensor):
+    """(Arr − Arm Amm⁻¹ Armᵀ, g_r − Arm Amm⁻¹ g_m) through the Cholesky
+    factor of the dropped block scaled to a unit diagonal: S = diag(Amm)^-½
+    (1 on a row without information), L Lᵀ = S Amm S + 1e-6·I,
+    B = L⁻¹ S Armᵀ, b = L⁻¹ S g_m, the complement Arr − BᵀB and g_r − Bᵀb.
+
+    The reference eliminates the block with an eigen pseudo-inverse that
+    inverts every eigenvalue above 1e-8 (marginalization_factor.cpp:
+    270-284): its eigenvalues carry float32 round-off of the block's
+    largest entry, which a weakly observed direction of the dropped frame
+    (a bias) passes into the kept block, and that round-off sets the kept
+    block's weakest directions and which factorization _info_to_sqrt takes
+    (ROADMAP item 31). Scaled to a unit diagonal, each variable's round-off
+    is relative to its own information; the ridge there is a prior of a
+    millionth of each dropped variable's information, and Arr − BᵀB is
+    symmetric and semidefinite to the round-off of Arr's entries.
+
+    Where round-off leaves S Amm S indefinite by more than that ridge, the
+    Cholesky fails, and L is the factor of the next ridge of SCHUR_RIDGES
+    that succeeds (counted as "schur_retry"); the last, 1, is each
+    dropped variable's own information, which a block semidefinite to
+    within round-off never fails; past it (a non-finite block) the
+    complement is NaN. The partial factor torch leaves would otherwise
+    become the complement. Every ridge is factored on every call, so the
+    choice reads nothing back to the host."""
+    Ams = 0.5 * (Amm + Amm.T)
+    d = torch.diagonal(Ams)
+    s = torch.where(d > 0, torch.rsqrt(torch.clamp(d, min=1e-30)), 1.0)
+    As = Ams * s[:, None] * s[None, :]
+    I = torch.eye(As.shape[0], dtype=As.dtype, device=As.device)
+    rhs = torch.cat([Arm.T, g_m[:, None]], 1) * s[:, None]
+    L = torch.full_like(As, float("nan"))
+    for ridge in reversed(SCHUR_RIDGES):
+        L_r, info = torch.linalg.cholesky_ex(As + ridge * I)
+        ok = _chol_ok(L_r, info)
+        L = torch.where(ok, L_r, L)
+    _count((~ok)[None], at=3)          # ok: the first ridge's factor
+    B = torch.linalg.solve_triangular(L, rhs, upper=False)
+    B, b = B[:, :-1], B[:, -1]
+    return Arr - B.T @ B, g_r - B.T @ b
+
+
+# Per-device int64 counts, one per BRANCHES entry: the priors
+# _info_to_sqrt factorized with the ridge, with the 100x ridge and through
+# the eigen fallback, and the Schur complements _schur formed past its
+# first ridge; None (the default) counts nothing. count_prior_branches()
+# switches it on.
+BRANCHES = ("ridge", "ridge_100x", "fallback", "schur_retry")
 _BRANCH_COUNTS = None
 
 
 def count_prior_branches(on: bool = True) -> None:
-    """Start (or stop) counting the branches of _info_to_sqrt, on the
-    device of each prior and without a host read; prior_branches() reads
-    them. Priors formed under torch.func.vmap are not counted."""
+    """Start (or stop) counting the branches of _info_to_sqrt and _schur,
+    on the device of each prior and without a host read; prior_branches()
+    reads them. Priors formed under torch.func.vmap are not counted."""
     global _BRANCH_COUNTS
     _BRANCH_COUNTS = {} if on else None
 
 
 def prior_branches() -> dict:
-    """{"ridge": n, "ridge_100x": n, "fallback": n} summed over devices
-    since count_prior_branches() (one host read per device)."""
-    tot = [0, 0, 0]
+    """{"ridge": n, "ridge_100x": n, "fallback": n, "schur_retry": n}
+    summed over devices since count_prior_branches() (one host read per
+    device)."""
+    tot = [0] * len(BRANCHES)
     for c in (_BRANCH_COUNTS or {}).values():
         tot = [a + int(b) for a, b in zip(tot, c.tolist())]
-    return dict(zip(("ridge", "ridge_100x", "fallback"), tot))
+    return dict(zip(BRANCHES, tot))
 
 
-def _count_branches(ok1: torch.Tensor, ok2: torch.Tensor) -> None:
-    if _BRANCH_COUNTS is None or torch._C._functorch.is_batchedtensor(ok1):
+def _count(flags: torch.Tensor, at: int = 0) -> None:
+    """Add the bool flags to the counts of BRANCHES[at:]."""
+    if _BRANCH_COUNTS is None or torch._C._functorch.is_batchedtensor(flags):
         return
-    c = _BRANCH_COUNTS.get(ok1.device)
+    c = _BRANCH_COUNTS.get(flags.device)
     if c is None:
-        c = _BRANCH_COUNTS[ok1.device] = torch.zeros(
-            3, dtype=torch.int64, device=ok1.device)
-    c += torch.stack([ok1, ~ok1 & ok2, ~(ok1 | ok2)]).to(torch.int64)
+        c = _BRANCH_COUNTS[flags.device] = torch.zeros(
+            len(BRANCHES), dtype=torch.int64, device=flags.device)
+    c[at:at + flags.shape[0]] += flags.to(torch.int64)
 
 
 def _info_to_sqrt(H: torch.Tensor, g: torch.Tensor, eps: float,
@@ -105,7 +154,7 @@ def _info_to_sqrt(H: torch.Tensor, g: torch.Tensor, eps: float,
     L1, info1 = torch.linalg.cholesky_ex(Hs + ridge * I)
     L2, info2 = torch.linalg.cholesky_ex(Hs + (100.0 * ridge) * I)
     ok1, ok2 = _chol_ok(L1, info1), _chol_ok(L2, info2)
-    _count_branches(ok1, ok2)
+    _count(torch.stack([ok1, ~ok1 & ok2, ~(ok1 | ok2)]))
     L = torch.where(ok1, L1, L2)
     r0 = torch.linalg.solve_triangular(L, g[:, None], upper=False)[:, 0]
     w, V = _eigh(Hs)
@@ -120,9 +169,17 @@ def _shift(x: torch.Tensor) -> torch.Tensor:
 
 
 def marginalize_old(state: WindowState, prob: WindowProblem,
-                    cfg: VinsConfig) -> PriorFactor:
+                    cfg: VinsConfig, bootstrap: bool = False) -> PriorFactor:
     """Marginalize frame 0 and the landmarks anchored there; the prior
-    comes back in the shifted frame indexing (VINS.cpp:690-776)."""
+    comes back in the shifted frame indexing (VINS.cpp:690-776).
+
+    bootstrap (BackendState.bootstrap: an empty prior and an unsolved
+    window) holds every kept direction at BOOT_HOLD times the largest
+    diagonal entry. Nothing else holds the position and yaw,
+    which VIO cannot observe, or the velocities and biases that no factor
+    of frame 0 reaches; the reference holds them with whichever ridge its
+    float32 round-off lets _info_to_sqrt take (the 100x ridge, or none:
+    a NaN prior), the port at that 100x ridge on every host."""
     F, M = prob.feats.mask.shape
     D = 15 * F
     dtype, dev = state.p.dtype, state.p.device
@@ -181,10 +238,12 @@ def marginalize_old(state: WindowState, prob: WindowProblem,
     H_pose = H[:D, :D] - (H_dl * inv_hll[None, :]) @ H_dl.T
     g_pose = g[:D] - H_dl @ (inv_hll * g[D:])
 
-    Amm_inv = _eig_clamped_pinv(H_pose[:15, :15], cfg.solver.eig_eps)
-    Arm = H_pose[15:, :15]
-    H_keep = H_pose[15:, 15:] - Arm @ Amm_inv @ Arm.T
-    g_keep = g_pose[15:] - Arm @ Amm_inv @ g_pose[:15]
+    H_keep, g_keep = _schur(H_pose[15:, 15:], H_pose[15:, :15],
+                            H_pose[:15, :15], g_pose[15:], g_pose[:15])
+    if bootstrap:
+        d_max = torch.max(torch.abs(torch.diagonal(H_keep)))
+        H_keep = H_keep + (BOOT_HOLD * d_max) * torch.eye(
+            D - 15, dtype=dtype, device=dev)
 
     J0s, r0s = _info_to_sqrt(H_keep, g_keep, cfg.solver.eig_eps,
                              cfg.solver.marg_sqrt)
@@ -218,9 +277,7 @@ def marginalize_second_new(state: WindowState, prior: PriorFactor,
     Amm = H[drop[:, None], drop[None, :]]
     Arm = H[keep[:, None], drop[None, :]]
     Arr = H[keep[:, None], keep[None, :]]
-    Amm_inv = _eig_clamped_pinv(Amm, cfg.solver.eig_eps)
-    H_keep = Arr - Arm @ Amm_inv @ Arm.T
-    g_keep = g[keep] - Arm @ Amm_inv @ g[drop]
+    H_keep, g_keep = _schur(Arr, Arm, Amm, g[keep], g[drop])
     J0k, r0k = _info_to_sqrt(H_keep, g_keep, cfg.solver.eig_eps,
                              cfg.solver.marg_sqrt)
     J0 = J0k.new_zeros((D, D))
