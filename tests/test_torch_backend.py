@@ -35,6 +35,8 @@ from vins_tpu_torch.core import solver as t_solver
 from vins_tpu_torch.core.factors import Extrinsics
 from vins_tpu_torch.core.state import FeatureTable, PriorFactor, WindowState
 
+pytest_plugins = ["torch_watchdog"]
+
 torch.set_num_threads(1)
 
 _WIN = dict(window_size=4, max_landmarks=64, max_imu_per_edge=8)

@@ -26,6 +26,8 @@ from vins_tpu_torch.ops import brief_cuda
 from vins_tpu_torch.ops import corners as t_corners
 from vins_tpu_torch.ops import image as t_img
 
+pytest_plugins = ["torch_watchdog"]
+
 torch.set_num_threads(1)
 
 H, W = 96, 128

@@ -7,6 +7,8 @@ import os
 import subprocess
 import sys
 
+pytest_plugins = ["torch_watchdog"]
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GPU_TESTS = {"test_kernels_on_card", "test_brief_kernel_on_card",
              "test_brief_raw_kernel_on_card", "test_patches_kernel_on_card",

@@ -13,6 +13,8 @@ from conftest import asl_fixture_cached
 
 from vins_tpu_torch import run_euroc
 
+pytest_plugins = ["torch_watchdog"]
+
 torch.set_num_threads(1)
 
 

@@ -16,6 +16,8 @@ from vins_tpu_torch import default_config
 from vins_tpu_torch.frontend.tracker import FeatureTracker
 from vins_tpu_torch.io import synthetic as t_syn
 
+pytest_plugins = ["torch_watchdog"]
+
 torch.set_num_threads(1)
 
 # tests/test_frontend.py:24-37: 10 fps, so 4 pyramid levels.

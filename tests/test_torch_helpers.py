@@ -18,6 +18,8 @@ from vins_tpu_torch.core import factors as t_factors
 from vins_tpu_torch.core import preintegration as t_pre
 from vins_tpu_torch.ops import corners as t_corners
 
+pytest_plugins = ["torch_watchdog"]
+
 torch.set_num_threads(1)
 
 IMU = ImuConfig()

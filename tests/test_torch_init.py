@@ -33,6 +33,8 @@ from vins_tpu_torch.core.factors import Extrinsics
 from vins_tpu_torch.core.state import FeatureTable, WindowState
 from vins_tpu_torch.ops import ransac as t_ransac
 
+pytest_plugins = ["torch_watchdog"]
+
 torch.set_num_threads(1)
 
 _WIN = dict(window_size=10, max_landmarks=128, max_imu_per_edge=8)

@@ -37,6 +37,8 @@ from vins_tpu_torch.core import preintegration as t_pre
 from vins_tpu_torch.core.factors import Extrinsics
 from vins_tpu_torch.io import synthetic as t_syn
 
+pytest_plugins = ["torch_watchdog"]
+
 torch.set_num_threads(1)
 
 

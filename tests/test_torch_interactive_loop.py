@@ -24,6 +24,8 @@ import vins_tpu_torch.config as tc
 from vins_tpu_torch.loop import keyframe_db as t_kdb
 from vins_tpu_torch.ops import brief as t_brief
 
+pytest_plugins = ["torch_watchdog"]
+
 _LOOP = dict(max_keyframes=32, max_kf_features=128, loop_freq=1,
              dislocal=40)
 CFG = VinsConfig(camera=CameraConfig(**ti._CAM),

@@ -33,6 +33,8 @@ from vins_tpu_torch.io.stream_sync import StreamSync as TStreamSync
 from vins_tpu_torch.io.synthetic import camera_ray_grid as t_ray_grid
 from vins_tpu_torch.utils import camera as t_cam
 
+pytest_plugins = ["torch_watchdog"]
+
 torch.set_num_threads(1)
 
 JCFG, TCFG = j_euroc_config(), t_euroc_config()

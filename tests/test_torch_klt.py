@@ -30,6 +30,8 @@ from vins_tpu_torch.ops import image as t_img
 from vins_tpu_torch.ops import klt as t_klt
 from vins_tpu_torch.ops import brief_cuda, klt_cuda
 
+pytest_plugins = ["torch_watchdog"]
+
 torch.set_num_threads(1)
 
 H, W, L = 128, 160, 3

@@ -23,6 +23,8 @@ import torch
 from vins_tpu_torch.ops import brief_cuda, klt, klt_cuda
 from vins_tpu_torch.ops import image as t_img
 
+pytest_plugins = ["torch_watchdog"]
+
 torch.set_num_threads(1)
 
 ITERS, EPS = 10, 0.01

@@ -30,6 +30,8 @@ from vins_tpu_torch.loop import pose_graph as t_pg
 from vins_tpu_torch.loop import vocabulary as t_voc
 from vins_tpu_torch.ops import ransac as t_ransac
 
+pytest_plugins = ["torch_watchdog"]
+
 torch.set_num_threads(1)
 
 CPU = torch.device("cpu")

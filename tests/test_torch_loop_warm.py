@@ -17,6 +17,8 @@ from vins_tpu.ops import corners as j_corners
 import vins_tpu_torch.config as tc
 from vins_tpu_torch.loop import keyframe_db as t_kdb
 
+pytest_plugins = ["torch_watchdog"]
+
 torch.set_num_threads(1)
 
 CPU = torch.device("cpu")

@@ -24,6 +24,8 @@ from vins_tpu_torch.core.preintegration import propagate
 from vins_tpu_torch.io import euroc, native_build, native_loader
 from vins_tpu_torch.io import native_runtime as t_nr
 
+pytest_plugins = ["torch_watchdog"]
+
 torch.set_num_threads(1)
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -263,6 +265,67 @@ def test_prefetcher_in_order_and_exact_under_stress(tmp_path):
         assert got is not None and len(got) == 24
         for g, e in zip(got, expect):
             np.testing.assert_array_equal(g, e)
+
+
+# The JAX package's prefetcher at tests/test_io.py's settings (6 frames of
+# 40x56, 3 workers, queue_cap 2) hung in every one of six such processes
+# run at once, after 29-662 loader runs each (ROADMAP, "Faults of the
+# reference"); one process alone ran 2,000 without a hang.
+STRESS_PROCS, STRESS_LOOPS, STRESS_JOIN_S = 6, 600, 10.0
+_STRESS_CHILD = """
+import sys, threading
+from vins_tpu_torch.io import euroc, native_loader
+paths = sys.argv[2:]
+expect = [euroc._decode_png_gray8(p) for p in paths]
+for k in range(int(sys.argv[1])):
+    got = []
+    def drain():
+        loader = native_loader.PrefetchingImageLoader(
+            paths, 56, 40, n_workers=3, queue_cap=2)
+        try:
+            got.extend(loader)
+        finally:
+            loader.close()
+    t = threading.Thread(target=drain, daemon=True)
+    t.start()
+    t.join(%r)
+    if t.is_alive():
+        print(f"hung at run {k}", flush=True)
+        sys.exit(1)
+    assert len(got) == len(expect), (k, len(got))
+    for g, e in zip(got, expect):
+        assert (g == e).all(), k
+print("ok", flush=True)
+""" % STRESS_JOIN_S
+
+
+def test_prefetcher_at_the_reference_test_settings_in_concurrent_processes(
+        tmp_path):
+    """tests/test_io.py's loader settings, which hang the JAX package's
+    prefetcher under load, on the port's repaired copy: STRESS_PROCS
+    processes at once, each running STRESS_LOOPS loaders one after
+    another, every loader drained in a daemon thread joined within
+    STRESS_JOIN_S; every frame in order and equal to the port's Python
+    decoder's."""
+    import subprocess
+    import sys
+
+    _require("vinsloader")
+    paths, _ = _pngs(tmp_path, 6, H=40, W=56, seed=2)
+    env = dict(os.environ, PYTHONPATH=_REPO, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _STRESS_CHILD, str(STRESS_LOOPS), *paths],
+        env=env, cwd=_REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for _ in range(STRESS_PROCS)]
+    try:
+        logs = [p.communicate(timeout=240) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, (out, err) in zip(procs, logs):
+        assert p.returncode == 0 and out.strip() == "ok", out + err[-2000:]
 
 
 def test_native_euroc_loader_matches_align_measurements(tmp_path):

@@ -30,6 +30,8 @@ from vins_tpu_torch.ops import ransac as t_ransac
 from vins_tpu_torch.utils import camera as t_cam
 from vins_tpu_torch.utils import lie as t_lie
 
+pytest_plugins = ["torch_watchdog"]
+
 torch.set_num_threads(1)
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -41,6 +41,8 @@ from vins_tpu_torch.parallel import (make_batched_sequence_runner,
 sys.path.insert(0, os.path.dirname(__file__))
 import torch_ranks  # noqa: E402
 
+pytest_plugins = ["torch_watchdog"]
+
 torch.set_num_threads(1)
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

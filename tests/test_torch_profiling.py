@@ -10,6 +10,8 @@ import torch
 from vins_tpu.utils import profiling as j_prof
 from vins_tpu_torch.utils import profiling as t_prof
 
+pytest_plugins = ["torch_watchdog"]
+
 torch.set_num_threads(1)
 
 

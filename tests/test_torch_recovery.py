@@ -30,6 +30,8 @@ from vins_tpu_torch.core.state import WindowState as TWindow
 from vins_tpu_torch.io import synthetic as t_syn
 from vins_tpu_torch.core import feature_manager as t_fm
 
+pytest_plugins = ["torch_watchdog"]
+
 torch.set_num_threads(1)
 
 N_FRAMES = 64

@@ -27,6 +27,8 @@ from vins_tpu_torch import pipeline as t_pipe
 from vins_tpu_torch.core import marginalization as t_marg
 from vins_tpu_torch.io import synthetic as t_syn
 
+pytest_plugins = ["torch_watchdog"]
+
 TCFG = tc.default_config()
 BLOCK = 12
 BOOT = TCFG.freq * (TCFG.window.num_frames - 1) + 1

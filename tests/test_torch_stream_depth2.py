@@ -35,6 +35,8 @@ from vins_tpu_torch.loop import keyframe_db as t_kdb
 from vins_tpu_torch.parallel import dist_ba as t_ba
 from vins_tpu_torch.parallel import harvest as t_harvest
 
+pytest_plugins = ["torch_watchdog"]
+
 torch.set_num_threads(1)
 
 N_FRAMES = N_FIRST + 6 * BLOCK      # stage, ride from block 2, retire

@@ -39,6 +39,8 @@ from vins_tpu_torch.core.preintegration import ImuChunk
 from vins_tpu_torch.io import synthetic as t_syn
 from vins_tpu_torch.loop import keyframe_db as t_kdb
 
+pytest_plugins = ["torch_watchdog"]
+
 torch.set_num_threads(1)
 
 _S = 0.4   # 480x640 default camera scaled to 192x256

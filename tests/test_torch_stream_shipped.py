@@ -35,6 +35,8 @@ from vins_tpu.config import FrontendConfig
 
 import vins_tpu_torch.config as tc
 
+pytest_plugins = ["torch_watchdog"]
+
 torch.set_num_threads(1)
 
 KLT_EPS = FrontendConfig().klt_eps      # the shipped setting, 0.01

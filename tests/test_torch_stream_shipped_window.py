@@ -11,6 +11,8 @@ from test_torch_stream import (CFG, check_carried_priors, check_per_frame,
                                run_streams)
 from test_torch_stream_shipped import reference_prior_is_nan, shipped
 
+pytest_plugins = ["torch_watchdog"]
+
 torch.set_num_threads(1)
 
 

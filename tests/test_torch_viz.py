@@ -26,6 +26,8 @@ from vins_tpu_torch.pipeline import PipelineOutput
 from vins_tpu_torch.viz import delaunay as t_del
 from vins_tpu_torch.viz import renderer as t_ren
 
+pytest_plugins = ["torch_watchdog"]
+
 torch.set_num_threads(1)
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
