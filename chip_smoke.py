@@ -40,7 +40,8 @@ Phases (any failure exits non-zero, and no result line is printed):
                 keypoints (bit for bit), beside its library yardstick,
                 one grid_sample call (within LIBRARY_TOL, timed as
                 library_ms);
-  4. loop     — (in a spawned child process, with phase 11 after it,
+  4. loop     — (in a spawned child process, with phases 11 and 13
+                after it,
                 alongside phases 5-10 in
                 this one, which runs 8, 9 and 10 first, then 5-7, so that the
                 script ends well inside its time on a slow host; each
@@ -66,7 +67,7 @@ Phases (any failure exits non-zero, and no result line is printed):
                 circle: the solver budget must step from max_iters down
                 to min_iters and stay within them, poses finite;
   7. interactive — VinsSystem(cfg) with loop closure on, frame by frame
-                through process_frame over 150 frames of the w = 0.35
+                through process_frame over 96 frames of the w = 0.35
                 circle: bootstrap, then the 30 Hz motion-only solve on
                 every frame, the backend every third and the loop DB on
                 keyframes; fails unless it initializes, its poses are
@@ -133,9 +134,10 @@ Phases (any failure exits non-zero, and no result line is printed):
                 and launch the runtime-window klt_fb_ncc once per
                 tracked frame; its init frame, frames/s and aligned ATE
                 are printed, the ATE not gated.
- 12. card tests — (in a subprocess after phase 3, alone on the card:
-                beside the other runs it took 649 s instead of some 50)
-                the gpu-marked cases of
+ 12. card tests — (in subprocesses after phase 3, alone on the card:
+                beside the other runs it took 649 s instead of some 50;
+                the revisit case in a pytest process of its own beside
+                the others, CARD_TEST_GROUPS) the gpu-marked cases of
                 CARD_TEST_FILES through pytest without JAX or conftest
                 (CARD_TEST_ARGS, README's command): the kernels against
                 their plain versions at the tests' points, the
@@ -143,9 +145,24 @@ Phases (any failure exits non-zero, and no result line is printed):
                 stream at the shipped klt_eps on the card against the
                 same stream on the CPU, and the bootstrap's Schur
                 complement on the card against its float64 value
-                (tests/test_torch_stream_card.py);
+                (tests/test_torch_stream_card.py), and the interactive
+                path with loop closure over a revisiting circle on the
+                card against the CPU, the same loop events on the same
+                frames (tests/test_torch_interactive_revisit_card.py);
                 fails unless pytest exits 0 and every collected case
                 passed, none skipped; prints the count;
+ 13. revisit  — (in phase 4's child, after phase 11) VinsSystem(cfg) with
+                loop closure on, frame by frame through process_frame
+                over REVISIT_TRAJ, a circle that comes back to its start
+                within the run, from a ground-truth bootstrap: fails
+                unless a hit is verified, staged and attached, rides a
+                good window solve and the pose graph runs, klt_fb_ncc
+                launches once per tracked frame and K3 from the raw frame
+                once per keyframe insert (verification reads the stored
+                words); prints the loop events by frame (verify runs,
+                hits, stagings, ridden frames, pose-graph runs), the
+                drift-corrected and uncorrected aligned ATE (not gated)
+                and each BRIEF launch's keypoint count;
 Every run prints its initialization attempts (frame, status, wall time,
 synchronizing CUDA calls) and how many marginalization priors took each
 branch of the prior's factorization (ridge Cholesky, 100x ridge, eigen
@@ -201,8 +218,22 @@ N_BOOT_MAX = 48
 N_FRAMES_LOOP = N_BOOT_MAX + N_AFTER_BOOT_LOOP
 INIT_AT_MAX_OFF = 45
 # Interactive run: frame by frame on the w = 0.35 circle, well past
-# bootstrap (about 30 frames).
-N_FRAMES_INTERACTIVE = 150
+# bootstrap (about 30 frames). 150 frames until phase 13 took over the
+# long interactive run: 96 keep the script within its time.
+N_FRAMES_INTERACTIVE = 96
+# Revisit run (phase 13): process_frame with loop closure at
+# default_config() over a circle that comes back to its start 236 frames
+# after the bootstrap (radius 2 m at 0.8 rad/s, 0.15 m of bob): a
+# ground-truth bootstrap at frame 30, the lap, then the revisit's
+# detection, verification, staging, attach, ride and pose graph (the
+# first hit at frame 291 in the first runs, each query after it
+# verifying, so that each new hit supersedes the ridden one and runs the
+# pose graph). Not tests/test_torch_interactive_revisit_card.py's circle
+# (1.5 m at 0.9 rad/s): at default_config() the backend's failure
+# detection fires on it at frame 234, loop closure on or off. Its
+# aligned ATE is recorded, not gated.
+REVISIT_TRAJ = dict(r=2.0, w=0.8, bob=0.15)
+N_FRAMES_REVISIT = 303
 # EuRoC run: tests/test_euroc_path.py:113-141's revisit tree and gates.
 EUROC_FRAMES = 360
 EUROC_SEED = 9
@@ -219,10 +250,10 @@ N_RT_AFTER = 96
 N_RT_BLOCK = 12
 # Device busy share: the loop-on run profiles the cycle of its 9th
 # dispatch (steady state, verification under way); the interactive run
-# the first backend frame from frame 100 on and the two 30 Hz frames
+# the first backend frame from frame 60 on and the two 30 Hz frames
 # after it.
 PROFILE_AT = 8
-PROFILE_FRAME = 100
+PROFILE_FRAME = 60
 # Phase 9 (scale-out): B streams of the backend through one vmapped step,
 # each stream bootstrapped from make_synthetic_window with its own seed and
 # fed the newest frame of the windows one frame interval later; bench.py's
@@ -305,9 +336,15 @@ NCC_TOL = 1e-4
 # pytest.ini addopts (its -n 2 needs pytest-xdist).
 CARD_TEST_FILES = ("tests/test_torch_klt.py", "tests/test_torch_klt_domain.py",
                    "tests/test_torch_brief.py",
-                   "tests/test_torch_stream_card.py")
+                   "tests/test_torch_stream_card.py",
+                   "tests/test_torch_interactive_revisit_card.py")
 CARD_TEST_ARGS = ("-p", "no:cacheprovider", "--noconftest", "-o", "addopts=",
                   "-m", "gpu", "-q", "-rP")
+# Phase 12's pytest processes, started at once: the revisit case, most of
+# it a CPU run and about three quarters of the files' time in one process
+# on an H100 machine, beside the rest, which keep the card busy.
+CARD_TEST_GROUPS = (("card_tests", CARD_TEST_FILES[:-1]),
+                    ("card_tests_revisit", CARD_TEST_FILES[-1:]))
 CARD_TESTS_TIMEOUT_S = 600
 # The runtime-window kernels: (window, levels) points the default configs
 # do not reach, on 640x480 frames with 128 slots (NCC within
@@ -1870,13 +1907,76 @@ def realtime_phase(cfg, device) -> dict:
                 ate_raw_rmse_m=ate_raw, prior_branches=branches)
 
 
-def interactive_phase(cfg, device, traj: dict, n_frames: int) -> dict:
+def _record_loop_path(sys_, frame) -> tuple:
+    """Record, by frame (frame[0]), the interactive path's loop events:
+    verify RANSAC runs and their candidates' readouts, hits (frame, old
+    DB row), stagings, the backend frames whose solve refined the staged
+    edge, and pose-graph runs; and each BRIEF extraction's keypoint
+    count on the card (K3 from the raw frame). Returns the record and a
+    function that restores ops.brief.extract_brief (the other wrappers
+    are the system's and its loop closer's instance attributes)."""
+    from vins_tpu_torch.ops import brief as brief_mod
+    lc = sys_.loop
+    rec = dict(verify=[], hits=[], staged=[], ridden=[], pose_graph=[],
+               brief_n=[])
+    finish, stage = lc.finish_detect, sys_._stage_loop_from_hit
+    refine, optimize = sys_._refine_edge_to_kf, lc.optimize
+    extract = brief_mod.extract_brief
+
+    def on_finish(pend, fetched):
+        hits = finish(pend, fetched)
+        if fetched:
+            n = sum(b is not None for b in pend[1])
+            n_in, _t, _yaw, good = [np.asarray(x)[:n]
+                                    for x in fetched[0][:4]]
+            rec["verify"].append((frame[0], n_in.astype(int).tolist(),
+                                  good.astype(bool).tolist()))
+        rec["hits"] += [(frame[0], h.old_idx) for h in hits
+                        if h is not None]
+        return hits
+
+    def on_stage(hit, *a, **kw):
+        ok = stage(hit, *a, **kw)
+        if ok:
+            rec["staged"].append(frame[0])
+        return ok
+
+    def on_refine(*a, **kw):
+        rec["ridden"].append(frame[0])
+        return refine(*a, **kw)
+
+    def on_optimize(*a, **kw):
+        rec["pose_graph"].append(frame[0])
+        return optimize(*a, **kw)
+
+    def on_extract(img, pts, *a, **kw):
+        if pts.is_cuda:
+            rec["brief_n"].append(int(pts.shape[0]))
+        return extract(img, pts, *a, **kw)
+
+    lc.finish_detect = on_finish
+    sys_._stage_loop_from_hit = on_stage
+    sys_._refine_edge_to_kf = on_refine
+    lc.optimize = on_optimize
+    brief_mod.extract_brief = on_extract
+    return rec, lambda: setattr(brief_mod, "extract_brief", extract)
+
+
+def interactive_phase(cfg, device, traj: dict, n_frames: int,
+                      ground_truth_init: bool = False, revisit: bool = False,
+                      ate_max=ATE_MAX, profile_frame=PROFILE_FRAME) -> dict:
     """Drive VinsSystem.process_frame (loop closure on) frame by frame over
-    a rendered sequence: bootstrap, then the interactive NON_LINEAR path.
-    Returns the measurements: the initialization attempts, each frame's
-    wall time by kind (boot, a 30 Hz frame with the motion-only solve, a
-    backend frame), the motion-only solve's own time (pnp_step) and each
-    keyframe insert's (insert and detection). Runs on any device."""
+    a rendered sequence: bootstrap (from the ground truth with
+    ground_truth_init), then the interactive NON_LINEAR path. Returns the
+    measurements: the initialization attempts, each frame's wall time by
+    kind (boot, a 30 Hz frame with the motion-only solve, a backend
+    frame), the motion-only solve's own time (pnp_step) and each keyframe
+    insert's (insert and detection), and the loop path's events (verify
+    runs, hits, stagings, ridden frames, pose-graph runs). Fails at an
+    aligned ATE of ate_max or more (None: not gated); with revisit, fails
+    unless a hit is verified, staged and attached, rides a good solve and
+    the pose graph runs. Profiles the first backend frame from
+    profile_frame on (None: none). Runs on any device."""
     import torch
     from vins_tpu_torch.core import pnp as pnp_mod
     from vins_tpu_torch.core.preintegration import ImuChunk
@@ -1892,7 +1992,9 @@ def interactive_phase(cfg, device, traj: dict, n_frames: int) -> dict:
     imgs = synthetic.render_sequence_images(seq, cfg, seed=SEED,
                                             device=device)
     ts = seq.timestamps.cpu().numpy()
-    sys_ = VinsSystem(cfg, ext=seq.ext, device=device)
+    sys_ = VinsSystem(cfg, ext=seq.ext, device=device, initializer=(
+        synthetic.ground_truth_initializer(seq, cfg) if ground_truth_init
+        else None))
 
     solve_ms, insert_ms = [], []
     profiled = None
@@ -1911,6 +2013,8 @@ def interactive_phase(cfg, device, traj: dict, n_frames: int) -> dict:
 
     step = pnp_mod.pnp_step
     pnp_mod.pnp_step = timed(step, solve_ms)
+    frame = [0]
+    loop_rec, unrecord = _record_loop_path(sys_, frame)
     sys_._handle_keyframe = timed(sys_._handle_keyframe, insert_ms)
     frames, outs = [], []
     _reset_counts()
@@ -1921,10 +2025,12 @@ def interactive_phase(cfg, device, traj: dict, n_frames: int) -> dict:
             t_run = time.perf_counter()
             prof = None
             for k in range(n_frames):
+                frame[0] = k
                 kind = ("boot" if not sys_.initialized else "backend"
                         if sys_.frame_idx % cfg.freq == 0 else "solve")
-                if on_card and profiled is None and prof is None \
-                        and k >= PROFILE_FRAME and kind == "backend":
+                if on_card and profile_frame is not None \
+                        and profiled is None and prof is None \
+                        and k >= profile_frame and kind == "backend":
                     # One backend frame and the two 30 Hz frames after it.
                     prof = profile(activities=[ProfilerActivity.CUDA])
                     prof.__enter__()
@@ -1947,6 +2053,7 @@ def interactive_phase(cfg, device, traj: dict, n_frames: int) -> dict:
             wall = time.perf_counter() - t_run
     finally:
         pnp_mod.pnp_step = step
+        unrecord()
         del sys_._handle_keyframe, sys_._initialize_window
     launches = _read_counts()
     branches = _read_branches()
@@ -1960,13 +2067,23 @@ def interactive_phase(cfg, device, traj: dict, n_frames: int) -> dict:
         _fail("an interactive output after bootstrap is not initialized "
               f"(statuses {[o.status for o in post if o.status]})")
     est = np.stack([o.p for o in post])
+    est_raw = np.stack([o.p_raw for o in post])
     quats = np.stack([o.q for o in post])
     if not (np.all(np.isfinite(est)) and np.all(np.isfinite(quats))):
         _fail("non-finite interactive pose after bootstrap")
-    ate, ate_raw = _ate(est, seq.p.cpu().numpy()[init_at:])
-    if ate >= ATE_MAX:
-        _fail(f"interactive aligned ATE RMSE {ate:.4f} m >= {ATE_MAX} m")
+    gt = seq.p.cpu().numpy()[init_at:]
+    ate, ate_raw = _ate(est, gt)
+    ate_nc, _ = _ate(est_raw, gt)
+    if ate_max is not None and ate >= ate_max:
+        _fail(f"interactive aligned ATE RMSE {ate:.4f} m >= {ate_max} m")
     lc = sys_.loop
+    st = dict(sys_.loop_stats)
+    if revisit and (st["hits"] < 1 or st["staged"] < 1
+                    or st["attached"] < 1 or st["good_frames"] < 1
+                    or lc.n_optimizes < 1):
+        _fail(f"revisit: no hit verified, staged, attached and ridden, or "
+              f"no pose-graph run (loop counters {st}, pose-graph runs "
+              f"{lc.n_optimizes}, verify runs {loop_rec['verify']})")
     tracked = n_frames - 1          # frame 0 only detects
     if on_card:
         if launches["klt_fb_ncc"] != tracked:
@@ -1974,6 +2091,7 @@ def interactive_phase(cfg, device, traj: dict, n_frames: int) -> dict:
                   f"{launches['klt_fb_ncc']} times for {tracked} tracked "
                   f"frames")
         if (lc.n_inserts < 1 or launches["brief_raw_words"] != lc.n_inserts
+                or len(loop_rec["brief_n"]) != lc.n_inserts
                 or launches["brief_words"] or launches["klt_pyramid"]
                 or launches["patch_ncc"]):
             _fail(f"interactive: K3 from the raw frame launched "
@@ -1987,9 +2105,13 @@ def interactive_phase(cfg, device, traj: dict, n_frames: int) -> dict:
 
     after = frames[init_at + 1:]
     n_after = len(after)
+    brief_n = loop_rec.pop("brief_n")
     return dict(
-        frames=n_frames, init_at=init_at, init_attempts=attempts,
-        ate_rmse_m=ate, ate_raw_rmse_m=ate_raw, wall_s=wall,
+        frames=n_frames, traj=dict(traj),
+        ground_truth_init=ground_truth_init, init_at=init_at,
+        init_attempts=attempts,
+        ate_rmse_m=ate, ate_raw_rmse_m=ate_raw,
+        ate_rmse_uncorrected_m=ate_nc, wall_s=wall,
         frames_per_s=n_frames / wall,
         frames_per_s_after_init=(n_after / sum(f["ms"] for f in after)
                                  * 1e3 if n_after else 0.0),
@@ -2001,7 +2123,11 @@ def interactive_phase(cfg, device, traj: dict, n_frames: int) -> dict:
         keyframe_insert=stats(insert_ms),
         boot_frame=stats([f["ms"] for f in frames[:init_at]
                           if f["kind"] == "boot"]),
-        keyframes_inserted=lc.n_inserts, loop_stats=dict(sys_.loop_stats),
+        keyframes_inserted=lc.n_inserts, loop_stats=st,
+        pose_graph_runs=lc.n_optimizes, detect_stats=dict(lc.detect_stats),
+        loop_events=loop_rec,
+        brief_launches_by_n={n: brief_n.count(n) for n in sorted(set(
+            brief_n))},
         launches=launches, prior_branches=branches,
         profiled_frames=profiled)
 
@@ -2012,8 +2138,9 @@ def _attempts_text(run: dict) -> str:
         f"{a['syncs']} syncs" for a in run["init_attempts"])
 
 
-def _report_interactive(run: dict, card: str) -> None:
-    print(f"interactive init: frame {run['init_at']}, "
+def _report_interactive(run: dict, card: str,
+                        tag: str = "interactive") -> None:
+    print(f"{tag} init: frame {run['init_at']}, "
           f"{len(run['init_attempts'])} attempts: {_attempts_text(run)}; "
           f"{card}")
 
@@ -2023,7 +2150,7 @@ def _report_interactive(run: dict, card: str) -> None:
                 f" max {st['max_ms']:.2f}, n {st['n']})" if st["n"]
                 else "none")
 
-    print(f"interactive: {run['frames']} frames, init at frame "
+    print(f"{tag}: {run['frames']} frames, init at frame "
           f"{run['init_at']}, ATE {run['ate_rmse_m']:.4f} m aligned, "
           f"{run['ate_raw_rmse_m']:.4f} m raw; {run['frames_per_s']:.2f} "
           f"frames/s end to end, {run['frames_per_s_after_init']:.2f} after "
@@ -2037,6 +2164,16 @@ def _report_interactive(run: dict, card: str) -> None:
           f"{_busy_text(run['profiled_frames'])}; launches "
           f"{run['launches']}; {_branches_text(run['prior_branches'])}; "
           f"{card}")
+    ev = run["loop_events"]
+    print(f"{tag} loop path: verify runs (frame, inliers, PnP accepted) "
+          f"{ev['verify']}; hits (frame, old row) {ev['hits']}, staged at "
+          f"{ev['staged']}, ridden with a good solve at {ev['ridden']}, "
+          f"pose graph at {ev['pose_graph']}; counters {run['loop_stats']}; "
+          f"ATE drift-corrected {run['ate_rmse_m']:.4f} m, uncorrected "
+          f"{run['ate_rmse_uncorrected_m']:.4f} m (aligned); launches "
+          f"klt_fb_ncc {run['launches']['klt_fb_ncc']}, K3 from the raw "
+          f"frame {run['launches']['brief_raw_words']} (by keypoints "
+          f"{run['brief_launches_by_n']}); {card}")
 
 
 def _report_run(tag: str, run: dict, card: str) -> None:
@@ -2980,10 +3117,21 @@ def domain_slice_phase(cfg, device) -> dict:
                        TRAJ_OFF, N_FRAMES_DOMAIN, ate_max=None)
 
 
+def revisit_phase(cfg, device) -> dict:
+    """Phase 13: interactive_phase over REVISIT_TRAJ from a ground-truth
+    bootstrap: fails unless a hit is verified, staged and attached, rides
+    a good window solve and the pose graph runs; klt_fb_ncc once per
+    tracked frame and K3 from the raw frame once per keyframe insert
+    (interactive_phase's gates)."""
+    return interactive_phase(cfg, device, REVISIT_TRAJ, N_FRAMES_REVISIT,
+                             ground_truth_init=True, revisit=True,
+                             ate_max=None, profile_frame=None)
+
+
 def _loop_on_child(path: str, device: str) -> None:
-    """Phases 4 and 11 in a child process: pickles ("ok", (slice_phase's
-    result, domain_slice_phase's)) or ("fail", what stopped it) to
-    path."""
+    """Phases 4, 11 and 13 in a child process: pickles ("ok",
+    (slice_phase's result, domain_slice_phase's, revisit_phase's)) or
+    ("fail", what stopped it) to path."""
     import pickle
     import traceback
 
@@ -2994,7 +3142,8 @@ def _loop_on_child(path: str, device: str) -> None:
         loop = slice_phase(default_config(), dev, True, TRAJ_LOOP,
                            N_FRAMES_LOOP, max_init_at=N_BOOT_MAX - 1,
                            profile_at=PROFILE_AT)
-        out = ("ok", (loop, domain_slice_phase(default_config(), dev)))
+        dom = domain_slice_phase(default_config(), dev)
+        out = ("ok", (loop, dom, revisit_phase(default_config(), dev)))
     except BaseException as e:      # _fail exits with SystemExit
         out = ("fail", f"{e!r}\n{traceback.format_exc()}")
     with open(path, "wb") as f:
@@ -3002,7 +3151,7 @@ def _loop_on_child(path: str, device: str) -> None:
 
 
 def _start_loop_on(device: str):
-    """Start phases 4 and 11 in a spawned process; returns (process,
+    """Start phases 4, 11 and 13 in a spawned process; returns (process,
     result path)."""
     import multiprocessing
     os.makedirs("smoke_out", exist_ok=True)
@@ -3016,14 +3165,16 @@ def _start_loop_on(device: str):
 
 
 def _join_loop_on(proc, path: str) -> tuple:
-    """Wait for the process of phases 4 and 11 (at most LOOP_ON_TIMEOUT_S)
-    and return their results; fails if it failed, died or ran over."""
+    """Wait for the process of phases 4, 11 and 13 (at most
+    LOOP_ON_TIMEOUT_S) and return their results; fails if it failed, died
+    or ran over."""
     import pickle
     proc.join(LOOP_ON_TIMEOUT_S)
     if proc.is_alive():
         proc.terminate()
         proc.join()
-        _fail(f"the loop-on and domain runs took over {LOOP_ON_TIMEOUT_S} s")
+        _fail(f"the loop-on, domain and revisit runs took over "
+              f"{LOOP_ON_TIMEOUT_S} s")
     if not os.path.exists(path):
         _fail(f"the loop-on run's process died (exit {proc.exitcode})")
     with open(path, "rb") as f:
@@ -3034,54 +3185,63 @@ def _join_loop_on(proc, path: str) -> tuple:
 
 
 def _start_card_tests() -> tuple:
-    """Start phase 12 in a subprocess: the card's parity tests
-    (CARD_TEST_ARGS on CARD_TEST_FILES, JAX not needed), its report in
-    smoke_out/card_tests.xml and its output in smoke_out/card_tests.log.
-    Returns (process, report path, log path, start time)."""
+    """Start phase 12: the card's parity tests (CARD_TEST_ARGS on
+    CARD_TEST_FILES, JAX not needed) in one pytest process per entry of
+    CARD_TEST_GROUPS, all at once, each one's report in
+    smoke_out/<name>.xml and its output in smoke_out/<name>.log. Returns
+    ([(process, report path, log path), ...], start time)."""
     os.makedirs("smoke_out", exist_ok=True)
-    xml = os.path.join("smoke_out", "card_tests.xml")
-    log = os.path.join("smoke_out", "card_tests.log")
-    if os.path.exists(xml):
-        os.remove(xml)
-    with open(log, "w") as out:
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "pytest", *CARD_TEST_ARGS,
-             f"--junitxml={xml}", *CARD_TEST_FILES], stdout=out,
-            stderr=subprocess.STDOUT)
-    return proc, xml, log, time.perf_counter()
+    runs = []
+    for name, files in CARD_TEST_GROUPS:
+        xml = os.path.join("smoke_out", name + ".xml")
+        log = os.path.join("smoke_out", name + ".log")
+        if os.path.exists(xml):
+            os.remove(xml)
+        with open(log, "w") as out:
+            runs.append((subprocess.Popen(
+                [sys.executable, "-m", "pytest", *CARD_TEST_ARGS,
+                 f"--junitxml={xml}", *files], stdout=out,
+                stderr=subprocess.STDOUT), xml, log))
+    return runs, time.perf_counter()
 
 
 def _join_card_tests(run: tuple) -> dict:
-    """Wait for phase 12 (at most CARD_TESTS_TIMEOUT_S from its start);
-    fails unless pytest exits 0 and every collected case passed, none
-    skipped. The process is killed if it runs over."""
+    """Wait for phase 12's processes (at most CARD_TESTS_TIMEOUT_S from
+    their start); fails unless each pytest exits 0 and every collected
+    case passed, none skipped. A process that runs over is killed."""
     import xml.etree.ElementTree as ET
-    proc, xml, log, t0 = run
-    try:
-        rc = proc.wait(timeout=max(
-            1.0, CARD_TESTS_TIMEOUT_S - (time.perf_counter() - t0)))
-    except subprocess.TimeoutExpired:
-        proc.kill()
-        proc.wait()
-        _fail(f"the card tests took over {CARD_TESTS_TIMEOUT_S} s")
-    seconds = time.perf_counter() - t0
-    with open(log) as f:
-        text = f.read()
-    tail = text[-3000:]
-    if not os.path.exists(xml):
-        _fail(f"the card tests wrote no report (pytest exit {rc}):\n{tail}")
-    root = ET.parse(xml).getroot()
-    suite = root if root.tag == "testsuite" else root.find("testsuite")
-    n = {k: int(suite.get(k, 0))
-         for k in ("tests", "failures", "errors", "skipped")}
-    if rc != 0 or n["tests"] == 0 or n["failures"] or n["errors"] \
-            or n["skipped"]:
-        _fail(f"the card tests: pytest exit {rc}, {n}:\n{tail}")
-    stream = [line for line in text.splitlines()
-              if line.startswith("card against CPU")]
-    return dict(passed=n["tests"], seconds=seconds,
+    runs, t0 = run
+    passed, text = 0, ""
+    for proc, xml, log in runs:
+        try:
+            rc = proc.wait(timeout=max(
+                1.0, CARD_TESTS_TIMEOUT_S - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            for p, _, _ in runs:
+                p.kill()
+                p.wait()
+            _fail(f"the card tests took over {CARD_TESTS_TIMEOUT_S} s")
+        with open(log) as f:
+            out = f.read()
+        tail = out[-3000:]
+        if not os.path.exists(xml):
+            _fail(f"the card tests wrote no report (pytest exit {rc}):\n"
+                  f"{tail}")
+        root = ET.parse(xml).getroot()
+        suite = root if root.tag == "testsuite" else root.find("testsuite")
+        n = {k: int(suite.get(k, 0))
+             for k in ("tests", "failures", "errors", "skipped")}
+        if rc != 0 or n["tests"] == 0 or n["failures"] or n["errors"] \
+                or n["skipped"]:
+            _fail(f"the card tests: pytest exit {rc}, {n}:\n{tail}")
+        passed += n["tests"]
+        text += out
+    first = lambda head: next((line for line in text.splitlines()
+                               if line.startswith(head)), None)
+    return dict(passed=passed, seconds=time.perf_counter() - t0,
                 files=list(CARD_TEST_FILES),
-                stream=stream[0] if stream else None)
+                stream=first("card against CPU"),
+                revisit=first("revisit, card against CPU"))
 
 
 def main() -> None:
@@ -3122,7 +3282,8 @@ def main() -> None:
     print(f"card tests: {run_cards['passed']} gpu cases of "
           f"{', '.join(CARD_TEST_FILES)} passed on the card without JAX, "
           f"none skipped, in {run_cards['seconds']:.1f} s; the stream at "
-          f"klt_eps 0.01: {run_cards['stream']}; {card}")
+          f"klt_eps 0.01: {run_cards['stream']}; the revisit: "
+          f"{run_cards['revisit']}; {card}")
 
     from vins_tpu_torch.core import marginalization as marg
     print(f"marginalization: every bootstrap prior held at "
@@ -3154,8 +3315,8 @@ def main() -> None:
                                     N_FRAMES_INTERACTIVE)
         _report_interactive(run_int, card)
         mark("phases 8-10, 5-7")
-        run_loop, run_dom = _join_loop_on(proc, loop_path)
-        mark("loop-on child (4, 11)")
+        run_loop, run_dom, run_rev = _join_loop_on(proc, loop_path)
+        mark("loop-on child (4, 11, 13)")
     finally:
         if proc.is_alive():
             proc.terminate()
@@ -3163,11 +3324,13 @@ def main() -> None:
     _report_run("loop", run_loop, card)
     _report_run(f"domain (window {DOMAIN_PATH[0]}, {DOMAIN_PATH[1]} "
                 f"levels, loop off)", run_dom, card)
+    _report_interactive(run_rev, card, tag="revisit")
 
     for k in kernels:
         k["launches"] = run_loop["launches"][k["name"]]
         k["launches_loop_off"] = run_off["launches"][k["name"]]
         k["launches_interactive"] = run_int["launches"][k["name"]]
+        k["launches_revisit"] = run_rev["launches"][k["name"]]
         k["launches_demo"] = run_last["demo"]["launches"][k["name"]]
     native_eu = run_last["loader"].get("euroc")
     for k in kernels_euroc:
@@ -3188,6 +3351,7 @@ def main() -> None:
     report["scale_out"] = run_so
     report["last_slice"] = run_last
     report["interactive"] = run_int
+    report["revisit"] = run_rev
     report["card_tests"] = run_cards
     report["kernels"] = kernels
     mark("end")

@@ -12,6 +12,15 @@ first sync of the next stream stages it after the second block was
 dispatched; each dispatch is stamped, so the block already in flight is
 not charged for it. Against a port whose process_stream has no `depth`,
 this file fails with a TypeError.
+
+The lockstep also records, on each side, every two-view triangulation
+gate decision (feature_manager.triangulate: a new landmark whose DLT
+depth in its anchor camera comes out under GATE_DEPTH takes the init
+depth instead) with its margin to the gate, computed in float64 from
+that side's own inputs. It reports the closest margin of every backend
+frame on both sides, and where the per-frame comparison fails it names
+the first gate decision the two sides took differently before that
+frame, so that a flip reads as a flip and not as drift.
 """
 import time
 
@@ -45,6 +54,112 @@ N_FRAMES = N_FIRST + 6 * BLOCK      # stage, ride from block 2, retire
 # w = 0.7 rad/s the view has turned 17 degrees by then, past what the
 # ride-time attach matches.
 TRAJ = dict(w=0.35, bob=0.15)
+
+
+# The two-view triangulation gate of feature_manager.triangulate in both
+# packages (feature_manager.cpp:190-256): depth under it takes the init
+# depth.
+GATE_DEPTH = 0.1
+
+
+def _rotmat64(q):
+    w, x, y, z = np.moveaxis(np.asarray(q, np.float64), -1, 0)
+    return np.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                     2 * (x * z + w * y), 2 * (x * y + w * z),
+                     1 - 2 * (x * x + z * z), 2 * (y * z - w * x),
+                     2 * (x * z - w * y), 2 * (y * z + w * x),
+                     1 - 2 * (x * x + y * y)], -1).reshape(
+                         np.shape(q)[:-1] + (3, 3))
+
+
+def gate_decisions(p, q, inv_depth, obs, mask, anchor, valid, track_id,
+                   tic, qic, inv_out, init_depth):
+    """One triangulate call's gate decisions: for every slot it fills
+    (valid, not yet initialized, seen at least twice), the track id, the
+    DLT depth in its anchor camera by triangulate's own formula in
+    float64 (NaN where its normal equations are singular) and whether
+    the call took the init depth (inv_out, the call's output, at
+    1 / init_depth)."""
+    p, obs = np.asarray(p, np.float64), np.asarray(obs, np.float64)
+    mask, anchor = np.asarray(mask, bool), np.asarray(anchor).astype(int)
+    R_wb = _rotmat64(q)
+    R_wc = R_wb @ _rotmat64(qic)
+    t_wc = p + np.einsum("fij,j->fi", R_wb, np.asarray(tic, np.float64))
+    R_rel = np.einsum("fij,mik->fmjk", R_wc, R_wc[anchor])
+    t_rel = np.einsum("fij,fmi->fmj", R_wc,
+                      t_wc[anchor][None] - t_wc[:, None])
+    P = np.concatenate([R_rel, t_rel[..., None]], -1)      # [F, M, 3, 4]
+    w = mask[..., None]
+    rows = np.concatenate([(obs[..., :1] * P[..., 2, :] - P[..., 0, :]) * w,
+                           (obs[..., 1:] * P[..., 2, :] - P[..., 1, :]) * w])
+    B, c = rows[..., :3], -rows[..., 3]
+    N = np.einsum("rma,rmb->mab", B, B)
+    b = np.einsum("rma,rm->ma", B, c)
+    need = (np.asarray(valid, bool) & (np.asarray(inv_depth) <= 0)
+            & (mask.sum(0) >= 2))
+    depth = np.full(need.shape, np.nan)
+    ok = need & (np.abs(np.linalg.det(N)) > 1e-12)
+    depth[ok] = np.linalg.solve(N[ok], b[ok][..., None])[:, 2, 0]
+    took_init = np.asarray(inv_out) == np.float32(1.0 / init_depth)
+    return dict(tids=np.asarray(track_id)[need], depth=depth[need],
+                took_init=took_init[need])
+
+
+def record_gate_decisions(mp, rec):
+    """Record in rec["gate_j"] / rec["gate_t"], call by call, each
+    package's triangulate gate decisions (gate_decisions); the JAX side's
+    through an ordered host callback inside its jitted scan."""
+    from vins_tpu.core import feature_manager as j_fm
+    from vins_tpu_torch.core import feature_manager as t_fm
+
+    rec.update(gate_j=[], gate_t=[])
+    j_tri, t_tri = j_fm.triangulate, t_fm.triangulate
+
+    def args(state, feats, ext, out):
+        return (state.p, state.q, state.inv_depth, feats.obs, feats.mask,
+                feats.anchor, feats.valid, feats.track_id, ext.tic, ext.qic,
+                out.inv_depth)
+
+    def ref(state, feats, ext, cfg):
+        out = j_tri(state, feats, ext, cfg)
+        jax.debug.callback(lambda *a: rec["gate_j"].append(gate_decisions(
+            *a, cfg.window.init_depth)), *args(state, feats, ext, out),
+            ordered=True)
+        return out
+
+    def port(state, feats, ext, cfg):
+        out = t_tri(state, feats, ext, cfg)
+        rec["gate_t"].append(gate_decisions(
+            *[x.numpy() for x in args(state, feats, ext, out)],
+            cfg.window.init_depth))
+        return out
+
+    mp.setattr(j_fm, "triangulate", ref)
+    mp.setattr(t_fm, "triangulate", port)
+
+
+def closest_margin(call) -> float:
+    """depth - GATE_DEPTH of the call's decision closest to the gate,
+    negative where the depth fell under it (inf if it filled no slot)."""
+    m = call["depth"] - GATE_DEPTH
+    m = m[np.isfinite(m)]
+    return float(m[np.argmin(np.abs(m))]) if len(m) else float("inf")
+
+
+def first_flip(gate_j, gate_t, upto):
+    """The first of the first `upto` triangulate calls where the two
+    sides fill the same track and one takes the init depth while the
+    other keeps its DLT depth: (call index, track id, reference depth,
+    port depth), or None."""
+    for i, (cj, ct) in enumerate(zip(gate_j[:upto], gate_t[:upto])):
+        both, ij, it = np.intersect1d(cj["tids"], ct["tids"],
+                                      return_indices=True)
+        diff = cj["took_init"][ij] != ct["took_init"][it]
+        if diff.any():
+            k = int(np.argmax(diff))
+            return i, int(both[k]), float(cj["depth"][ij[k]]), \
+                float(ct["depth"][it[k]])
+    return None
 
 
 def _instrument(sys_, log):
@@ -121,6 +236,8 @@ def streams():
     mp = pytest.MonkeyPatch()
     mp.setattr(j_pipe.init_mod, "initialize", gt_initialize)
     carried = carry_priors(mp, j_pipe, TCFG)
+    gates = {}
+    record_gate_decisions(mp, gates)
     sys_j._refine_init = lambda w, fe, ch: (w, 0.0)
     imgs_t = torch.as_tensor(imgs)
 
@@ -150,10 +267,12 @@ def streams():
         sys_t._stage_queue.append(
             ht._replace(edge_abs=sys_t.loop._add_loop_edge(ht)))
         outs_j, outs_t = run(N_FIRST, N_FRAMES)
+        jax.effects_barrier()
     finally:
         mp.undo()
     return dict(first_j=first_j, first_t=first_t, outs_j=outs_j,
-                carried=carried,
+                carried=carried, gate_j=gates["gate_j"],
+                gate_t=gates["gate_t"],
                 outs_t=outs_t, sys_j=sys_j, sys_t=sys_t,
                 flags_j=np.concatenate(log_j["flags"]),
                 flags_t=np.concatenate(log_t["flags"]),
@@ -211,20 +330,75 @@ def test_depth2_matches_jax_per_frame(streams):
     assert len(outs_j) == len(outs_t) == N_FRAMES
     n_corr = 0
     for k, (oj, ot) in enumerate(zip(outs_j, outs_t)):
-        assert (oj.initialized, oj.is_keyframe, oj.status, oj.loop_hit) == \
-            (ot.initialized, ot.is_keyframe, ot.status, ot.loop_hit), k
-        assert abs(oj.n_tracked - ot.n_tracked) <= 2, k
-        if not oj.initialized:
-            continue
-        np.testing.assert_allclose(ot.p, oj.p, atol=5e-3,
-                                   err_msg=f"frame {k}")
-        np.testing.assert_allclose(ot.p_raw, oj.p_raw, atol=1e-2,
-                                   err_msg=f"frame {k}")
-        assert _rot_err(np.asarray(oj.q), np.asarray(ot.q)) < 5e-3, k
+        try:
+            assert (oj.initialized, oj.is_keyframe, oj.status,
+                    oj.loop_hit) == (ot.initialized, ot.is_keyframe,
+                                     ot.status, ot.loop_hit), k
+            assert abs(oj.n_tracked - ot.n_tracked) <= 2, k
+            if not oj.initialized:
+                continue
+            np.testing.assert_allclose(ot.p, oj.p, atol=5e-3,
+                                       err_msg=f"frame {k}")
+            np.testing.assert_allclose(ot.p_raw, oj.p_raw, atol=1e-2,
+                                       err_msg=f"frame {k}")
+            assert _rot_err(np.asarray(oj.q), np.asarray(ot.q)) < 5e-3, k
+        except AssertionError as e:
+            raise AssertionError(f"{e}\n{_parting(s, k)}") from None
         n_corr += int(np.linalg.norm(np.asarray(oj.p) - np.asarray(oj.p_raw))
                       > 1e-6)
     assert n_corr >= 1, "no published pose carries a drift correction"
     check_carried_priors(s["carried"])
+
+
+def _gate_frames(s) -> list:
+    """The stream frame of each recorded triangulate call: the bootstrap
+    at the first initialized frame, then one call per backend frame."""
+    outs = s["first_j"] + s["outs_j"]
+    init_at = next(k for k, o in enumerate(outs) if o.initialized)
+    return [init_at + CFG.freq * i for i in range(len(s["gate_j"]))]
+
+
+def _parting(s, k) -> str:
+    """What parted the two streams by frame k: the first triangulation
+    gate decision taken differently before it, or, if none, each side's
+    closest margin up to it."""
+    frames = _gate_frames(s)
+    upto = sum(f <= k for f in frames)
+    flip = first_flip(s["gate_j"], s["gate_t"], upto)
+    if flip is not None:
+        i, tid, dj, dt = flip
+        return (f"the streams part at frame {k} after the {GATE_DEPTH} m "
+                f"triangulation gate flipped at frame {frames[i]} on track "
+                f"{tid}: reference depth {dj:.5f} m, port {dt:.5f} m")
+    mj = min((closest_margin(c) for c in s["gate_j"][:upto]), key=abs,
+             default=np.inf)
+    mt = min((closest_margin(c) for c in s["gate_t"][:upto]), key=abs,
+             default=np.inf)
+    return (f"no triangulation gate decision differs up to frame {k}; the "
+            f"closest margins: reference {mj:+.3g} m, port {mt:+.3g} m")
+
+
+def test_depth2_reports_triangulation_gate_margins(streams):
+    """Both sides triangulate on the same frames (the bootstrap and every
+    backend frame) and fill the same tracks wherever neither has taken a
+    gate decision the other did not; the closest margin to the 0.1 m gate
+    of each such frame is printed for both sides, beside the first flip
+    if the two ever decide a track differently (ROADMAP item 33: this
+    scene's frame-51 triangulation lies millimetres from the gate)."""
+    s = streams
+    gj, gt = s["gate_j"], s["gate_t"]
+    frames = _gate_frames(s)
+    assert len(gj) == len(gt) == 1 + (N_FRAMES - 1 - frames[0]) // CFG.freq
+    flip = first_flip(gj, gt, len(gj))
+    for i, (f, cj, ct) in enumerate(zip(frames, gj, gt)):
+        if flip is None or i < flip[0]:
+            np.testing.assert_array_equal(np.sort(ct["tids"]),
+                                          np.sort(cj["tids"]), err_msg=f)
+        print(f"frame {f}: {len(cj['tids'])} / {len(ct['tids'])} "
+              f"triangulations, closest margin to the {GATE_DEPTH} m gate "
+              f"{closest_margin(cj):+.4g} m (reference) / "
+              f"{closest_margin(ct):+.4g} m (port)")
+    print(_parting(s, N_FRAMES - 1))
 
 
 def _carry_loop(lj, lt):

@@ -458,6 +458,9 @@ class VinsSystem:
                         e, loop_rel_t, float(loop_rel_yaw), pose_p,
                         _np_yaw(pose_q), self.loop.count - 1)
                     self.loop_stats["good_frames"] += 1
+                    if not pl["attached"]:
+                        pl["attached"] = True
+                        self.loop_stats["attached"] += 1
             pl["ttl"] -= 1
             if pl["ttl"] <= 0 or int(loop_support) < 10:
                 self.loop.optimize()
@@ -520,9 +523,11 @@ class VinsSystem:
             self.loop.optimize()
         F = self.cfg.window.num_frames
         dev = self.device
+        # Attached at its first good window solve, as a ride-time attach
+        # in block mode.
         self._pending_loop = {
             "edge_abs": hit.edge_abs, "old_idx": hit.old_idx, "ttl": F,
-            "attached": True,
+            "attached": False,
             "dev": LoopInput(
                 obs_old=torch.as_tensor(obs_by_slot, device=dev),
                 ok=torch.as_tensor(ok_by_slot, device=dev),
