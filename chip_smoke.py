@@ -230,8 +230,10 @@ N_FRAMES_INTERACTIVE = 96
 # verifying, so that each new hit supersedes the ridden one and runs the
 # pose graph). Not tests/test_torch_interactive_revisit_card.py's circle
 # (1.5 m at 0.9 rad/s): at default_config() the backend's failure
-# detection fires on it at frame 234, loop closure on or off. Its
-# aligned ATE is recorded, not gated.
+# detection fires on it twice a lap, loop closure on or off, through its
+# features-tracked gate (under 4 window landmarks seen in the newest
+# frame), in the JAX package too (tools/torch_revisit_reference.py).
+# Its aligned ATE is recorded, not gated.
 REVISIT_TRAJ = dict(r=2.0, w=0.8, bob=0.15)
 N_FRAMES_REVISIT = 303
 # EuRoC run: tests/test_euroc_path.py:113-141's revisit tree and gates.

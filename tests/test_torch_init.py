@@ -26,6 +26,7 @@ from vins_tpu.io.synthetic import make_synthetic_window
 from vins_tpu.ops import ransac as j_ransac
 from vins_tpu.utils import lie as j_lie
 
+import torch_watchdog
 import vins_tpu_torch.config as tc
 from vins_tpu_torch.core import initialization as t_init
 from vins_tpu_torch.core import preintegration as t_pre
@@ -104,9 +105,14 @@ def _low_excitation_chunks(syn):
 
 
 @pytest.fixture(scope="module")
-def ref():
+def ref(request):
     """The SUCCESS window, the JAX initialize on it with every stage's
-    inputs and outputs recorded, and the reference's refined window."""
+    inputs and outputs recorded, and the reference's refined window
+    (built once per test run, torch_watchdog.once_per_run)."""
+    return torch_watchdog.once_per_run(request, _ref)
+
+
+def _ref():
     syn = make_synthetic_window(CFG, n_landmarks=128, seed=11)
     rec = {}
     mp = pytest.MonkeyPatch()

@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import torch_watchdog
 from conftest import render_cached
 from test_torch_stream import _rot_err, jax_ransac_noise
 from vins_tpu.config import (CameraConfig, FrontendConfig, SolverConfig,
@@ -391,9 +392,41 @@ def compare_lockstep(outs_j, outs_t, atol=ATOL):
     return init_at
 
 
+def loop_record(sys_, fetch) -> dict:
+    """What the loop-closure checks read of a system after its run, as
+    numpy copies (fetch: the package's device-to-numpy copy): the loop
+    closer's counters, drift and refined-weight list, its DB rows, BoW
+    vectors and pose-graph loop columns, and the system's keyframe count,
+    dispatch counter and staged hit."""
+    lc = sys_.loop
+    n = int(lc.count)
+    db, graph = fetch(lc.db), fetch(lc.graph)
+    return dict(
+        count=n, n_inserts=getattr(lc, "n_inserts", None),
+        n_optimizes=lc.n_optimizes, loop_w_host=list(lc._loop_w_host),
+        W_REFINED=lc.W_REFINED,
+        t_drift=np.array(lc.t_drift), r_drift=np.array(lc.r_drift),
+        p=np.array(db.p[:n]), kp_ok=np.array(db.kp_ok[:n]),
+        kp_px=np.array(db.kp_px[:n]),
+        desc=np.array(db.desc[:n]).view(np.int32),
+        bow=np.array(fetch(lc.bow)[:n]),
+        **{name: np.array(getattr(graph, name)) for name in (
+            "loop_i", "loop_j", "loop_w", "loop_t", "loop_yaw")},
+        pending=sys_._pending_loop is not None, kf_count=sys_.kf_count,
+        dispatch_seq=sys_._dispatch_seq)
+
+
 @pytest.fixture(scope="module")
-def lockstep():
-    return run_lockstep(CFG, TCFG, N_FRAMES, use_loop=False)
+def lockstep(request):
+    """run_lockstep's sequence and outputs, loop off, and whether each
+    system ended initialized (JAX, port), built once per test run
+    (torch_watchdog.once_per_run)."""
+    def build():
+        seq, outs_j, outs_t, sys_j, sys_t = run_lockstep(
+            CFG, TCFG, N_FRAMES, use_loop=False)
+        return (seq, outs_j, outs_t, bool(sys_j.initialized),
+                bool(sys_t.initialized))
+    return torch_watchdog.once_per_run(request, build)
 
 
 def test_process_frame_bootstraps_and_runs_like_jax(lockstep):
@@ -401,14 +434,14 @@ def test_process_frame_bootstraps_and_runs_like_jax(lockstep):
     first), the same init frame and window, then NON_LINEAR frames (the
     30 Hz solve and the backend) from the reference's carried state with
     the same outputs (compare_lockstep's tolerances)."""
-    _, outs_j, outs_t, sys_j, sys_t = lockstep
+    _, outs_j, outs_t, init_j, init_t = lockstep
     init_at = compare_lockstep(outs_j, outs_t)
     statuses = [o.status for o in outs_j[:init_at] if o.status]
     assert statuses == ["FAIL_ALIGN"], statuses
     assert init_at is not None and init_at + 3 * CFG.freq < N_FRAMES
     assert all(o.initialized for o in outs_t[init_at:])
     assert sum(o.point_cloud is not None for o in outs_t[init_at + 1:]) >= 3
-    assert sys_t.initialized and sys_j.initialized
+    assert init_t and init_j
 
 
 def test_process_frame_self_initialized_tracks_ground_truth(lockstep):

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 import test_torch_interactive as ti
+import torch_watchdog
 from vins_tpu.config import (CameraConfig, FrontendConfig, LoopConfig,
                              VinsConfig, WindowConfig)
 
@@ -69,8 +70,20 @@ def _drift_free_hit(sys_j, cls):
 
 
 @pytest.fixture(scope="module")
-def lockstep():
+def lockstep(request):
+    """build_lockstep's record, built once per test run
+    (torch_watchdog.once_per_run)."""
+    return torch_watchdog.once_per_run(request, build_lockstep)
+
+
+def build_lockstep() -> dict:
+    """The loop-on lockstep with a drift-free hit staged on both sides
+    once both DBs hold two keyframes, recorded as plain data: outputs,
+    the staging, the port's BRIEF call count and loop counters, and each
+    system's DB and pose graph after the run (ti.loop_record)."""
+    import jax
     from vins_tpu.loop.keyframe_db import LoopHit as JHit
+    from vins_tpu_torch import interop
 
     staged = {}
 
@@ -100,8 +113,12 @@ def lockstep():
             CFG, TCFG, N_FRAMES, use_loop=True, on_frame=on_frame)
     finally:
         mp.undo()
-    return dict(seq=seq, outs_j=outs_j, outs_t=outs_t, sys_j=sys_j,
-                sys_t=sys_t, staged=staged, n_brief=len(n_brief))
+    return dict(outs_j=outs_j, outs_t=outs_t, staged=staged,
+                n_brief=len(n_brief),
+                after_j=ti.loop_record(sys_j, jax.device_get),
+                after_t=ti.loop_record(sys_t, interop.to_numpy),
+                loop_stats=dict(sys_t.loop_stats),
+                W_REFINED=sys_t.loop.W_REFINED)
 
 
 def test_loop_on_process_frame_matches_jax(lockstep):
@@ -127,35 +144,25 @@ def test_loop_on_db_and_constraint_lifecycle_match_jax(lockstep):
     refined weight, no constraint pending), the same number of pose-graph
     runs, and the edge measurement and drift to 5e-3."""
     s = lockstep
-    lj, lt = s["sys_j"].loop, s["sys_t"].loop
-    assert lt.count == lj.count >= 2
-    assert lt.n_inserts == lj.count
-    n = lj.count
-    np.testing.assert_allclose(lt.db.p[:n].numpy(), np.asarray(lj.db.p[:n]),
-                               atol=5e-3)
-    ok_j = np.asarray(lj.db.kp_ok[:n])
-    ok_t = lt.db.kp_ok[:n].numpy()
-    both = ok_j & ok_t
-    assert both.sum() >= 0.9 * ok_j.sum()
-    dj = np.asarray(lj.db.desc[:n]).view(np.int32)
-    np.testing.assert_array_equal(lt.db.desc[:n].numpy()[both], dj[both])
-    np.testing.assert_allclose(lt.bow[:n].numpy(), np.asarray(lj.bow[:n]),
-                               atol=1e-5)
-    assert s["sys_t"]._pending_loop is None
-    assert s["sys_j"]._pending_loop is None
-    assert lt._loop_w_host == lj._loop_w_host == [lt.W_REFINED]
-    assert lt.n_optimizes == lj.n_optimizes >= 1
-    st = s["sys_t"].loop_stats
+    lj, lt = s["after_j"], s["after_t"]
+    assert lt["count"] == lj["count"] >= 2
+    assert lt["n_inserts"] == lj["count"]
+    np.testing.assert_allclose(lt["p"], lj["p"], atol=5e-3)
+    both = lj["kp_ok"] & lt["kp_ok"]
+    assert both.sum() >= 0.9 * lj["kp_ok"].sum()
+    np.testing.assert_array_equal(lt["desc"][both], lj["desc"][both])
+    np.testing.assert_allclose(lt["bow"], lj["bow"], atol=1e-5)
+    assert not lt["pending"] and not lj["pending"]
+    assert lt["loop_w_host"] == lj["loop_w_host"] == [s["W_REFINED"]]
+    assert lt["n_optimizes"] == lj["n_optimizes"] >= 1
+    st = s["loop_stats"]
     assert st["staged"] == 1 and st["retired"] == 1 and st["good_frames"] >= 1
     for name in ("loop_i", "loop_j", "loop_w"):
-        np.testing.assert_array_equal(getattr(lt.graph, name).numpy(),
-                                      np.asarray(getattr(lj.graph, name)))
-    np.testing.assert_allclose(lt.graph.loop_t.numpy(),
-                               np.asarray(lj.graph.loop_t), atol=5e-3)
-    np.testing.assert_allclose(lt.graph.loop_yaw.numpy(),
-                               np.asarray(lj.graph.loop_yaw), atol=5e-3)
-    np.testing.assert_allclose(lt.t_drift, lj.t_drift, atol=5e-3)
-    np.testing.assert_allclose(lt.r_drift, lj.r_drift, atol=5e-3)
+        np.testing.assert_array_equal(lt[name], lj[name])
+    np.testing.assert_allclose(lt["loop_t"], lj["loop_t"], atol=5e-3)
+    np.testing.assert_allclose(lt["loop_yaw"], lj["loop_yaw"], atol=5e-3)
+    np.testing.assert_allclose(lt["t_drift"], lj["t_drift"], atol=5e-3)
+    np.testing.assert_allclose(lt["r_drift"], lj["r_drift"], atol=5e-3)
 
 
 def test_brief_runs_once_per_keyframe_insert(lockstep):
@@ -163,5 +170,5 @@ def test_brief_runs_once_per_keyframe_insert(lockstep):
     raw-frame entry, its plain version on the CPU) and nowhere else, and
     inserts every keyframe (loop_freq = 1)."""
     s = lockstep
-    lt = s["sys_t"].loop
-    assert s["n_brief"] == lt.n_inserts == s["sys_t"].kf_count >= 2
+    lt = s["after_t"]
+    assert s["n_brief"] == lt["n_inserts"] == lt["kf_count"] >= 2

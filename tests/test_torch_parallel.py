@@ -40,6 +40,7 @@ from vins_tpu_torch.parallel import (make_batched_sequence_runner,
 
 sys.path.insert(0, os.path.dirname(__file__))
 import torch_ranks  # noqa: E402
+import torch_watchdog  # noqa: E402
 
 pytest_plugins = ["torch_watchdog"]
 
@@ -118,10 +119,14 @@ def test_make_ba_problem_matches_jax():
 # -- the batched backend step -----------------------------------------------
 
 @pytest.fixture(scope="module")
-def batched():
+def batched(request):
     """B = 8 streams of two synthetic worlds: the port's batched step, its
     single-stream steps and the JAX make_batched_step on the 8-device
-    mesh."""
+    mesh (built once per test run, torch_watchdog.once_per_run)."""
+    return torch_watchdog.once_per_run(request, _batched)
+
+
+def _batched():
     states, inputs, ext, gravity = torch_ranks.stream_problems(TCFG)
     est_b, out_b = make_batched_step(TCFG, ext, gravity)(
         stack_states(states), stack_inputs(inputs))
@@ -144,8 +149,8 @@ def batched():
     step = j_make_batched_step(cfg, wins[0].ext, wins[0].gravity,
                                j_make_mesh(batch=8, block=1))
     est_j, out_j = step(j_stack_states(tile(js)), j_stack_inputs(tile(ji)))
-    return dict(est_b=est_b, out_b=out_b, singles=singles, est_j=est_j,
-                out_j=jax.device_get(out_j))
+    return dict(est_b=est_b, out_b=out_b, singles=singles,
+                est_j=jax.device_get(est_j), out_j=jax.device_get(out_j))
 
 
 def test_batched_step_matches_jax(batched):
@@ -228,9 +233,15 @@ def _garbage_at(inputs, k):
 
 
 @pytest.fixture(scope="module")
-def scan():
+def scan(request):
     """The JAX sequence (failing at its last frame) through the JAX scan and
-    VinsEstimator, and carried into the port through its own."""
+    VinsEstimator, and carried into the port through its own (built once
+    per test run, torch_watchdog.once_per_run: the JAX VinsEstimator as
+    whether it ended initialized)."""
+    return torch_watchdog.once_per_run(request, _scan)
+
+
+def _scan():
     cfg = jcfg()
     est_j, inp_j, ext_j, grav_j = _jax_backend_inputs(cfg, N_SEQ, 0, SEQ_DT)
     inp_j = _garbage_at(inp_j, FAIL_AT)
@@ -257,7 +268,8 @@ def scan():
             before_fail = ve_t.state
         frames_t.append(ve_t.process_frame(t_est.tree_index(inp_t, k)))
     return dict(fin_j=jax.device_get(fin_j), outs_j=jax.device_get(outs_j),
-                frames_j=frames_j, ve_j=ve_j, fin_t=fin_t, outs_t=outs_t,
+                frames_j=frames_j, ve_j_initialized=bool(ve_j.initialized),
+                fin_t=fin_t, outs_t=outs_t,
                 before_fail=before_fail, frames_t=frames_t, ve_t=ve_t,
                 est_t=est_t, inp_t=inp_t, ext=ext, grav=grav)
 
@@ -297,7 +309,7 @@ def test_vins_estimator_matches_jax(scan):
             np.testing.assert_allclose(ft.pose_p.numpy(), fj.pose_p,
                                        atol=1e-3)
         assert torch.equal(ft.pose_p, scan["outs_t"].pose_p[k]), k
-    assert not scan["ve_t"].initialized and not scan["ve_j"].initialized
+    assert not scan["ve_t"].initialized and not scan["ve_j_initialized"]
     with pytest.raises(RuntimeError, match="not initialized"):
         scan["ve_t"].process_frame(t_est.tree_index(scan["inp_t"], 0))
 
@@ -340,9 +352,15 @@ def test_make_mesh_needs_a_process_group():
 
 
 @pytest.fixture(scope="module")
-def worlds(tmp_path_factory):
+def worlds(request, tmp_path_factory):
     """tests/torch_ranks.py in gloo worlds of 2 and 4 processes, both at
-    once; {world size: each rank's results}."""
+    once; {world size: each rank's results} (built once per test run,
+    torch_watchdog.once_per_run)."""
+    return torch_watchdog.once_per_run(
+        request, lambda: _worlds(tmp_path_factory))
+
+
+def _worlds(tmp_path_factory):
     env = dict(os.environ, PYTHONPATH=_REPO, OMP_NUM_THREADS="1")
     procs = {}
     for n in (2, 4):

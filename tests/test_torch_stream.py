@@ -28,6 +28,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import torch_watchdog
 from conftest import render_cached
 from vins_tpu.config import (CameraConfig, FrontendConfig, VinsConfig,
                              WindowConfig)
@@ -464,8 +465,11 @@ def check_per_frame(outs_j, outs_t, min_init=2 * BLOCK + 1, upto=None):
 
 
 @pytest.fixture(scope="module")
-def streams():
-    return run_streams(CFG, TCFG)
+def streams(request):
+    """run_streams' record, built once per test run
+    (torch_watchdog.once_per_run)."""
+    return torch_watchdog.once_per_run(request,
+                                       lambda: run_streams(CFG, TCFG))
 
 
 def test_torch_stream_matches_jax_per_frame(streams):

@@ -23,6 +23,7 @@ the first gate decision the two sides took differently before that
 frame, so that a flip reads as a flip and not as drift.
 """
 import time
+import traceback
 
 import jax
 import jax.numpy as jnp
@@ -30,7 +31,9 @@ import numpy as np
 import pytest
 import torch
 
+import torch_watchdog
 from conftest import render_cached
+from test_torch_interactive import loop_record
 from test_torch_stream import (_rot_err, carry_priors, check_carried_priors,
                                jax_ransac_noise)
 from test_torch_stream_loop import (BLOCK, CFG, F, N_FIRST, SEED, TCFG,
@@ -195,8 +198,10 @@ def _instrument(sys_, log):
     sys_.loop.optimize, sys_._stage_anchor_from_hit = opt, stg
 
 
-@pytest.fixture(scope="module")
-def streams():
+def run_streams():
+    """Both systems streamed at depth 2 (module docstring): their outputs,
+    loop events, dispatched flags, gate decisions, carried priors and the
+    two live systems."""
     from vins_tpu.core import feature_manager as j_fm
     from vins_tpu.core.initialization import InitResult, InitStatus
     from vins_tpu.core.state import WindowState as JWindow
@@ -303,17 +308,16 @@ def test_depth2_stages_after_the_next_dispatch(streams):
     # the second stream's; nothing rides its blocks 0 and 1.
     assert not good[:3 * BLOCK].any()
     assert (fj[:, 1] > 0.5).any(), "the loop constraint never retired"
-    st_t = s["sys_t"].loop_stats
+    st_t = s["loop_stats"]
     assert (st_t["staged"], st_t["attached"]) == (1, 1)
-    lj, lt = s["sys_j"].loop, s["sys_t"].loop
-    assert lt.n_optimizes == lj.n_optimizes >= 1
-    assert lt.count == lj.count
-    assert lt._loop_w_host == lj._loop_w_host == [lt.W_REFINED]
-    assert s["sys_t"]._pending_loop is None and \
-        s["sys_j"]._pending_loop is None
-    assert s["sys_t"]._dispatch_seq == s["sys_j"]._dispatch_seq
-    np.testing.assert_allclose(lt.t_drift, lj.t_drift, atol=5e-3)
-    np.testing.assert_allclose(lt.r_drift, lj.r_drift, atol=5e-3)
+    lj, lt = s["after_j"], s["after_t"]
+    assert lt["n_optimizes"] == lj["n_optimizes"] >= 1
+    assert lt["count"] == lj["count"]
+    assert lt["loop_w_host"] == lj["loop_w_host"] == [s["W_REFINED"]]
+    assert not lt["pending"] and not lj["pending"]
+    assert lt["dispatch_seq"] == lj["dispatch_seq"]
+    np.testing.assert_allclose(lt["t_drift"], lj["t_drift"], atol=5e-3)
+    np.testing.assert_allclose(lt["r_drift"], lj["r_drift"], atol=5e-3)
 
 
 def test_depth2_matches_jax_per_frame(streams):
@@ -413,18 +417,115 @@ def _carry_loop(lj, lt):
     assert (lt.count, lt.n_loops) == (int(lj.db.count), lj.n_loops)
 
 
-@pytest.fixture(scope="module")
-def ba(streams):
+def _global_ba(lj, lt) -> dict:
+    """LoopCloser.global_ba on both sides (the same DB, graph and drift),
+    and what test_global_ba_writes_the_same_columns reads after it."""
+    n = lt.count
+    cost_j = lj.global_ba()
+    cost_t = lt.global_ba()
+    dj, dt = jax.device_get(lj.db), lt.db
+    gj, gt = jax.device_get(lj.graph), lt.graph
+    cols = lambda db, names: {k: np.asarray(getattr(db, k))[:n]
+                              for k in names}
+    return dict(
+        n=n, cost_j=float(cost_j), cost_t=float(cost_t),
+        db_j=cols(dj, ("p_origin", "q_origin", "p", "q")),
+        db_t=cols(interop.to_numpy(dt), ("p_origin", "q_origin", "p", "q")),
+        graph_j=cols(gj, ("t_origin", "yaw_origin")),
+        graph_t=cols(interop.to_numpy(gt), ("t_origin", "yaw_origin")),
+        n_optimizes=(lj.n_optimizes, lt.n_optimizes))
+
+
+def _in_stream_global_ba(lj, lt) -> dict:
+    """VinsSystem(global_ba_every_kf=1) in both packages on the carried
+    loop closers: insert_block_keyframes twice each (the second adds no
+    row), and what test_in_stream_global_ba_matches_jax reads after."""
+    from vins_tpu import pipeline as j_pipe
+    _carry_loop(lj, lt)
+    sys_j = j_pipe.VinsSystem(CFG, use_loop=True, global_ba_every_kf=1)
+    sys_t = t_pipe.VinsSystem(TCFG, use_loop=True, global_ba_every_kf=1,
+                              device="cpu")
+    sys_j.loop, sys_t.loop = lj, lt
+    prep = dict(outs=None, imgs=None, ts=None, n_ok=0, is_kf=[], p=None,
+                q=None)
+    runs = []
+    for sys_ in (sys_j, sys_t):
+        sys_.insert_block_keyframes(prep)
+        sys_.insert_block_keyframes(prep)   # no new rows: no second run
+        runs.append(sys_.ba_runs)
+    n = lt.count
+    return dict(ba_runs=runs, p_origin_t=lt.db.p_origin[:n].numpy(),
+                p_origin_j=np.asarray(lj.db.p_origin)[:n],
+                mesh_t=sys_t._ba_mesh is None)
+
+
+def _stage(fn, *args) -> tuple:
+    """(True, fn(*args)), or (False, its traceback): a stage of
+    build_record whose error fails only the tests that read it."""
+    try:
+        return True, fn(*args)
+    except Exception:
+        return False, traceback.format_exc()
+
+
+def _result(stage):
+    ok, value = stage
+    if not ok:
+        pytest.fail(f"the shared build's stage failed:\n{value}",
+                    pytrace=False)
+    return value
+
+
+def build_record() -> dict:
+    """Everything the file's tests read, as plain data: run_streams'
+    record without the live systems (their state after the stream in
+    "after_j" / "after_t"); then, on the JAX run's DB carried into the
+    port (_carry_loop), the harvested BA problems and their solves
+    ("ba"), LoopCloser.global_ba ("global_ba") and the in-stream global
+    BA ("in_stream"), in the file's order, each stage's error kept for
+    the tests that read it."""
     from vins_tpu.parallel import dist_ba as j_ba
     from vins_tpu.parallel import harvest as j_harvest
-    lj, lt = streams["sys_j"].loop, streams["sys_t"].loop
-    _carry_loop(lj, lt)
-    res_j = j_harvest.harvest_ba_problem(lj.db, lj.tic, lj.qic)
-    res_t = t_harvest.harvest_ba_problem(lt.db, lt.count, lt.tic, lt.qic)
-    solved_j = j_ba.solve_ba(res_j.state, res_j.prob, iters=8)
-    solved_t = t_ba.solve_ba(res_t.state, res_t.prob, iters=8)
-    return dict(lj=lj, lt=lt, res_j=res_j, res_t=res_t, solved_j=solved_j,
-                solved_t=solved_t)
+    s = run_streams()
+    sys_j, sys_t = s.pop("sys_j"), s.pop("sys_t")
+    s.update(after_j=loop_record(sys_j, jax.device_get),
+             after_t=loop_record(sys_t, interop.to_numpy),
+             loop_stats=dict(sys_t.loop_stats),
+             W_REFINED=sys_t.loop.W_REFINED)
+    lj, lt = sys_j.loop, sys_t.loop
+
+    def problems():
+        _carry_loop(lj, lt)
+        res_j = j_harvest.harvest_ba_problem(lj.db, lj.tic, lj.qic)
+        res_t = t_harvest.harvest_ba_problem(lt.db, lt.count, lt.tic,
+                                             lt.qic)
+        return dict(res_j=jax.device_get(res_j), res_t=res_t,
+                    solved_j=jax.device_get(j_ba.solve_ba(
+                        res_j.state, res_j.prob, iters=8)),
+                    solved_t=t_ba.solve_ba(res_t.state, res_t.prob, iters=8))
+
+    ba = _stage(problems)
+    return dict(streams=s, ba=ba,
+                global_ba=_stage(_global_ba, lj, lt) if ba[0] else ba,
+                in_stream=_stage(_in_stream_global_ba, lj, lt)
+                if ba[0] else ba)
+
+
+@pytest.fixture(scope="module")
+def record(request):
+    """build_record's record, built once per test run
+    (torch_watchdog.once_per_run)."""
+    return torch_watchdog.once_per_run(request, build_record)
+
+
+@pytest.fixture(scope="module")
+def streams(record):
+    return record["streams"]
+
+
+@pytest.fixture(scope="module")
+def ba(record):
+    return _result(record["ba"])
 
 
 def test_harvest_matches_jax(ba):
@@ -478,33 +579,25 @@ def test_solve_ba_matches_jax(ba):
     np.testing.assert_allclose(res[0].numpy(), res[1].numpy(), atol=1e-4)
 
 
-def test_global_ba_writes_the_same_columns(ba):
+def test_global_ba_writes_the_same_columns(record, ba):
     """LoopCloser.global_ba on the same DB, graph and drift: the same
     cost (1e-4 relative), and the same raw and published pose columns and
     pose-graph origin columns (1e-4 m / 1e-4 rad), then the same
     re-published poses after the pose-graph run (1e-3 m / 1e-3 rad: the
     graph's own fp32 LM on top). The harvested problem padded for a
     sharded solve (masked zero rows) has the same cost."""
-    lj, lt = ba["lj"], ba["lt"]
-    n = lt.count
-    cost_j = lj.global_ba()
-    cost_t = lt.global_ba()
-    assert cost_t == pytest.approx(cost_j, rel=1e-4)
-    dj, dt = jax.device_get(lj.db), lt.db
+    g = _result(record["global_ba"])
+    assert g["cost_t"] == pytest.approx(g["cost_j"], rel=1e-4)
     for name in ("p_origin", "q_origin"):
-        np.testing.assert_allclose(getattr(dt, name)[:n].numpy(),
-                                   np.asarray(getattr(dj, name))[:n],
+        np.testing.assert_allclose(g["db_t"][name], g["db_j"][name],
                                    atol=1e-4, err_msg=name)
-    gj, gt = jax.device_get(lj.graph), lt.graph
     for name in ("t_origin", "yaw_origin"):
-        np.testing.assert_allclose(getattr(gt, name)[:n].numpy(),
-                                   np.asarray(getattr(gj, name))[:n],
+        np.testing.assert_allclose(g["graph_t"][name], g["graph_j"][name],
                                    atol=1e-4, err_msg=name)
     for name in ("p", "q"):
-        np.testing.assert_allclose(getattr(dt, name)[:n].numpy(),
-                                   np.asarray(getattr(dj, name))[:n],
+        np.testing.assert_allclose(g["db_t"][name], g["db_j"][name],
                                    atol=1e-3, err_msg=name)
-    assert lt.n_optimizes == lj.n_optimizes
+    assert g["n_optimizes"][1] == g["n_optimizes"][0]
     res = ba["res_t"]
     padded = t_harvest.pad_landmarks_to(res.state, res.prob, 8)
     assert padded[1].mask.shape[0] % 8 == 0
@@ -601,27 +694,14 @@ def test_realtime_budget_policy_matches_jax(monkeypatch):
         list(range(10)) + list(range(11, 18))
 
 
-def test_in_stream_global_ba_matches_jax(ba):
+def test_in_stream_global_ba_matches_jax(record):
     """VinsSystem(global_ba_every_kf=1): insert_block_keyframes runs the
     global BA once the DB has grown by that many rows since the last run,
     its cost fetch deferred, in both packages alike: one run each, and the
     same raw pose columns (1e-4 m, as above). The JAX system shards this
     BA over the test harness's eight CPU devices; the port solves it on
-    one."""
-    from vins_tpu import pipeline as j_pipe
-    lj, lt = ba["lj"], ba["lt"]
-    _carry_loop(lj, lt)
-    sys_j = j_pipe.VinsSystem(CFG, use_loop=True, global_ba_every_kf=1)
-    sys_t = t_pipe.VinsSystem(TCFG, use_loop=True, global_ba_every_kf=1,
-                              device="cpu")
-    sys_j.loop, sys_t.loop = lj, lt
-    prep = dict(outs=None, imgs=None, ts=None, n_ok=0, is_kf=[], p=None,
-                q=None)
-    for sys_ in (sys_j, sys_t):
-        sys_.insert_block_keyframes(prep)
-        sys_.insert_block_keyframes(prep)   # no new rows: no second run
-        assert sys_.ba_runs == 1
-    n = lt.count
-    np.testing.assert_allclose(lt.db.p_origin[:n].numpy(),
-                               np.asarray(lj.db.p_origin)[:n], atol=1e-4)
-    assert sys_t._ba_mesh is None
+    one. (build_record runs both systems, after the global BA above.)"""
+    r = _result(record["in_stream"])
+    assert r["ba_runs"] == [1, 1]
+    np.testing.assert_allclose(r["p_origin_t"], r["p_origin_j"], atol=1e-4)
+    assert r["mesh_t"]

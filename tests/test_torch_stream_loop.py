@@ -25,7 +25,9 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import torch_watchdog
 from conftest import render_cached
+from test_torch_interactive import loop_record
 from test_torch_stream import (_rot_err, carry_priors, check_carried_priors,
                                jax_ransac_noise)
 from vins_tpu.config import (CameraConfig, FrontendConfig, LoopConfig,
@@ -126,7 +128,22 @@ def _carry_state(sys_j, sys_t):
 
 
 @pytest.fixture(scope="module")
-def streams():
+def streams(request):
+    """run_streams' record with each system's loop closer after the
+    stream as plain data (test_torch_interactive.loop_record), built once
+    per test run (torch_watchdog.once_per_run)."""
+    def build():
+        s = run_streams()
+        s["loop_j"] = loop_record(s.pop("sys_j"), jax.device_get)
+        s["loop_t"] = loop_record(s.pop("sys_t"), interop.to_numpy)
+        return s
+    return torch_watchdog.once_per_run(request, build)
+
+
+def run_streams():
+    """Both systems streamed with the JAX state carried before the loop
+    phase and the same hit queued on both sides (module docstring): their
+    outputs, flags, loop events, carried priors and the live systems."""
     from vins_tpu.core import feature_manager as j_fm
     from vins_tpu.core.initialization import InitResult, InitStatus
     from vins_tpu.core.state import WindowState as JWindow
@@ -222,21 +239,17 @@ def test_torch_stream_loop_events_match_jax(streams):
     assert ret_j.any(), "the loop constraint never retired"
     assert s["ev_t"] == s["ev_j"]
     assert any(e[0] == "optimize" for e in s["ev_j"])
-    lj, lt = s["sys_j"].loop, s["sys_t"].loop
-    assert lt.n_optimizes == lj.n_optimizes >= 1
-    assert lt.count == lj.count
-    assert lt._loop_w_host == lj._loop_w_host == [lt.W_REFINED]
-    assert s["sys_t"]._pending_loop is None and \
-        s["sys_j"]._pending_loop is None
+    lj, lt = s["loop_j"], s["loop_t"]
+    assert lt["n_optimizes"] == lj["n_optimizes"] >= 1
+    assert lt["count"] == lj["count"]
+    assert lt["loop_w_host"] == lj["loop_w_host"] == [lt["W_REFINED"]]
+    assert not lt["pending"] and not lj["pending"]
     for name in ("loop_i", "loop_j", "loop_w"):
-        np.testing.assert_array_equal(getattr(lt.graph, name).numpy(),
-                                      np.asarray(getattr(lj.graph, name)))
-    np.testing.assert_allclose(lt.graph.loop_t.numpy(),
-                               np.asarray(lj.graph.loop_t), atol=5e-3)
-    np.testing.assert_allclose(lt.graph.loop_yaw.numpy(),
-                               np.asarray(lj.graph.loop_yaw), atol=5e-3)
-    np.testing.assert_allclose(lt.t_drift, lj.t_drift, atol=5e-3)
-    np.testing.assert_allclose(lt.r_drift, lj.r_drift, atol=5e-3)
+        np.testing.assert_array_equal(lt[name], lj[name])
+    np.testing.assert_allclose(lt["loop_t"], lj["loop_t"], atol=5e-3)
+    np.testing.assert_allclose(lt["loop_yaw"], lj["loop_yaw"], atol=5e-3)
+    np.testing.assert_allclose(lt["t_drift"], lj["t_drift"], atol=5e-3)
+    np.testing.assert_allclose(lt["r_drift"], lj["r_drift"], atol=5e-3)
 
 
 def _compare_frames(outs_j, outs_t, offset):

@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_watchdog
 from conftest import render_cached
 from test_torch_stream import (CFG, N_FRAMES, SEED, TCFG, TRAJ, _rot_err,
                                check_carried_priors, check_per_frame,
@@ -60,9 +61,12 @@ def reference_prior_is_nan(rec) -> bool:
 
 
 @pytest.fixture(scope="module")
-def streams():
+def streams(request):
+    """Both streams at (21, 3), built once per test run
+    (torch_watchdog.once_per_run)."""
     assert KLT_EPS == tc.FrontendConfig().klt_eps == 0.01
-    return run_streams(*shipped(21, 3), tpu_branch=True)
+    return torch_watchdog.once_per_run(
+        request, lambda: run_streams(*shipped(21, 3), tpu_branch=True))
 
 
 def test_shipped_stream_matches_jax_per_frame(streams):

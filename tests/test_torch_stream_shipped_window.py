@@ -7,6 +7,7 @@ port's priors (test_torch_stream.carry_priors)."""
 import pytest
 import torch
 
+import torch_watchdog
 from test_torch_stream import (CFG, check_carried_priors, check_per_frame,
                                run_streams)
 from test_torch_stream_shipped import reference_prior_is_nan, shipped
@@ -17,8 +18,11 @@ torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module")
-def streams():
-    return run_streams(*shipped(15, 4), tpu_branch=True)
+def streams(request):
+    """Both streams at (15, 4), built once per test run
+    (torch_watchdog.once_per_run)."""
+    return torch_watchdog.once_per_run(
+        request, lambda: run_streams(*shipped(15, 4), tpu_branch=True))
 
 
 def test_shipped_window_stream_matches_jax_per_frame(streams):

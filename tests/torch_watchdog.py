@@ -1,4 +1,5 @@
-"""A time limit of its own for every test of the port.
+"""A time limit of its own for every test of the port, and module fixtures
+built once per test run.
 
 Each tests/test_torch_*.py names this module in `pytest_plugins`; pytest
 registers it when it imports the first such file. For every test of a
@@ -10,11 +11,18 @@ past its limit dumps every thread's stack to the real stderr and ends
 its process with exit code 1: under pytest-xdist the controller reports
 that test failed ("worker crashed while running ...") and starts a new
 worker for the rest; without xdist the session ends there, with the
-stack printed. Under `--dist loadfile` xdist hands the crashed test to
-the new worker again, with the rest of its file: each watched test
-leaves a marker file while it runs (under the temporary directory,
-per xdist test run), and a test that finds its own marker fails at
-once, since its earlier worker died in it.
+stack printed.
+
+Under `--dist load` (the Tier-1 command) xdist does not hand the
+crashed test to any worker again: the rest of the dead worker's queue
+goes to the others. Under `--dist loadfile` it hands the crashed test to
+the new worker again, with the rest of its file; so each watched test
+leaves a marker file while it runs, and a test that finds its own
+marker fails at once, since its earlier worker died in it. The markers
+lie in the run's own temporary folder (the controller's pytest basetemp,
+whose `popen-gwN` subfolders the workers use), which pytest deletes with
+its old runs' folders; a marker of a crashed test under `--dist load`
+stays there unread.
 
 The limits are in tests/torch_time_limits.json, written by
 `python tools/torch_tier1_soak.py --size XML...` from the junit reports
@@ -24,10 +32,25 @@ fixture of a wider scope than the function's that is not built yet (a
 module fixture: rendered frames, both systems' runs). A test the table
 does not list takes `default`. A module may name its own limits in a
 dict `TIME_LIMITS` (item name -> seconds), which the table does not
-override. Every watched test records, as the junit property
+override. Every watched test records two junit properties:
 `watchdog_shared_setup_s`, the seconds of a setup that built such a
-fixture (0.0 otherwise): the sizing tool splits each test's time with
-it.
+fixture in this process, and `watchdog_shared_read_s`, the seconds it
+spent waiting for and reading a fixture that another process of the
+run built (once_per_run; both 0.0 otherwise). The sizing tool splits
+each test's time with them.
+
+once_per_run(request, build) is how a module fixture is built once per
+test run, not once per xdist worker: under `--dist load` the tests of
+one file go to several workers, and a worker tears a module fixture
+down whenever its next test is of another file. The first process to
+ask builds the value under a file lock in the run's folder and writes
+it there pickled; every other process (and the same one, after a
+teardown) waits on the lock and reads it. A build that fails writes its
+error, and every later reader fails with it; a process that dies while
+building leaves its start marker, and every later reader fails on that.
+Every caller, the building process too, gets the value through a pickle
+round trip, so each test sees the same kind of copy with or without
+xdist and runs its own assertions on it.
 
 The JAX package's tests keep no limit, with one exception that this
 plugin adds from outside its file: REFERENCE_TESTS, the reference's
@@ -40,12 +63,14 @@ from __future__ import annotations
 
 import contextlib
 import faulthandler
+import fcntl
 import hashlib
 import json
 import os
+import pickle
 import sys
-import tempfile
 import time
+import traceback
 
 import pytest
 
@@ -53,6 +78,7 @@ LIMITS_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "torch_time_limits.json")
 PLUGIN = "torch_watchdog"
 SHARED_SETUP = "watchdog_shared_setup_s"
+SHARED_READ = "watchdog_shared_read_s"
 # tests/test_io.py::test_native_png_decoder_and_prefetch waits forever
 # in native/dataloader.cpp's in-order delivery under load (vl_next at
 # vins_tpu/io/native_loader.py:82, called from tests/test_io.py:100).
@@ -60,6 +86,7 @@ REFERENCE_TESTS = ("tests/test_io.py::test_native_png_decoder_and_prefetch",)
 
 _table = None
 _stderr_fd = None
+_read_s = 0.0      # seconds once_per_run spent reading in this setup
 _armed = pytest.StashKey[str]()
 _died_in = pytest.StashKey[bool]()
 
@@ -107,14 +134,22 @@ def limit_of(item, shared: bool) -> float:
     return float(seconds + (entry.get("setup", 0) if shared else 0))
 
 
+def run_folder(config):
+    """The folder every process of this xdist run shares: the
+    controller's pytest basetemp, the parent of each worker's (None
+    outside a worker)."""
+    if getattr(config, "workerinput", None) is None:
+        return None
+    return str(config._tmp_path_factory.getbasetemp().parent)
+
+
 def _marker(item):
     """The file a watched test leaves while it runs in an xdist worker
     (None outside one, where a stall ends the session)."""
-    worker = getattr(item.config, "workerinput", None)
-    if worker is None:
+    folder = run_folder(item.config)
+    if folder is None:
         return None
-    folder = os.path.join(tempfile.gettempdir(),
-                          f"torch_watchdog_{worker['testrunuid']}")
+    folder = os.path.join(folder, "torch_watchdog")
     os.makedirs(folder, exist_ok=True)
     return os.path.join(folder, hashlib.sha1(
         item.nodeid.encode()).hexdigest())
@@ -125,6 +160,54 @@ def _drop(marker: str) -> None:
     os.remove(marker)
     with contextlib.suppress(OSError):
         os.rmdir(os.path.dirname(marker))
+
+
+def _write(path: str, record) -> None:
+    tmp = f"{path}.tmp{os.getpid()}"
+    with open(tmp, "wb") as f:
+        pickle.dump(record, f, protocol=pickle.HIGHEST_PROTOCOL)
+    os.replace(tmp, path)
+
+
+def once_per_run(request, build):
+    """build()'s value, built once per test run (module docstring): by
+    this process if no other has, else read from the run's folder; always
+    through a pickle round trip. Keyed by the module and the fixture's
+    name (request: the fixture's)."""
+    global _read_s
+    folder = run_folder(request.config)
+    if folder is None:
+        return pickle.loads(pickle.dumps(build(),
+                                         protocol=pickle.HIGHEST_PROTOCOL))
+    folder = os.path.join(folder, "once_per_run")
+    os.makedirs(folder, exist_ok=True)
+    name = f"{request.module.__name__}.{request.fixturename}"
+    path = os.path.join(folder, name)
+    t0 = time.perf_counter()
+    built = False
+    with open(path + ".lock", "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(path + ".pkl"):
+            if os.path.exists(path + ".started"):
+                pytest.fail(f"{name}: the worker that was building it died "
+                            f"(past its time limit, or a crash)",
+                            pytrace=False)
+            open(path + ".started", "w").close()
+            built = True
+            try:
+                value = build()
+            except BaseException:
+                _write(path + ".pkl", (False, traceback.format_exc()))
+                raise
+            _write(path + ".pkl", (True, value))
+    with open(path + ".pkl", "rb") as f:
+        ok, value = pickle.load(f)
+    if not built:
+        _read_s += time.perf_counter() - t0
+    if not ok:
+        pytest.fail(f"{name}: its build failed in another process of this "
+                    f"run:\n{value}", pytrace=False)
+    return value
 
 
 def _real_stderr(config) -> int:
@@ -151,6 +234,7 @@ def pytest_refuse_a_test_that_stalled(item):
 
 @pytest.hookimpl(wrapper=True, tryfirst=True)
 def pytest_runtest_setup(item):
+    global _read_s
     if not watched(item):
         return (yield)
     marker = _marker(item)
@@ -164,13 +248,15 @@ def pytest_runtest_setup(item):
         open(marker, "w").close()
     faulthandler.dump_traceback_later(limit_of(item, shared), exit=True,
                                       file=_real_stderr(item.config))
+    _read_s = 0.0
     t0 = time.perf_counter()
     try:
         return (yield)
     finally:
+        seconds = time.perf_counter() - t0 if shared else 0.0
         item.user_properties.append(
-            (SHARED_SETUP, round(time.perf_counter() - t0, 3) if shared
-             else 0.0))
+            (SHARED_SETUP, round(max(seconds - _read_s, 0.0), 2)))
+        item.user_properties.append((SHARED_READ, round(_read_s, 2)))
 
 
 @pytest.hookimpl(wrapper=True, trylast=True)

@@ -4,8 +4,10 @@ the port tests' time limits from such runs.
     python tools/torch_tier1_soak.py [--runs 5] [--concurrent 2]
         [--tree DIR] [--out DIR]
 
-The command is the tree's ROADMAP.md "Tier-1 verify" line, run with
-bash from the root of a fresh copy of the tree for every run, holding
+The command is the tree's ROADMAP.md "Tier-1 verify" line with
+`--dist load` in place of its `--dist loadfile`, as the Tier-1 runs are
+made (ROADMAP, the note below that line), run with bash from the root
+of a fresh copy of the tree for every run, holding
 only what git would commit (tracked and untracked files that
 .gitignore does not list), so every run renders its fixtures anew as a
 fresh checkout does. Its fixed log and junit paths (/tmp/_t1.log,
@@ -19,23 +21,35 @@ copy, for every run; each copy is reported. One JSON line per copy:
 the run and copy index, rc, seconds, DOTS_PASSED and WORKERS_DOWN as
 the command prints them, the failed tests named in the junit report,
 the first lines of every stack that was dumped (faulthandler's
-"Timeout" dumps: pytest's and the port's watchdog's), and the five
-slowest tests by the junit report. Each run's output (_t1.out) and
+"Timeout" dumps: pytest's and the port's watchdog's), the five
+slowest tests by the junit report, the largest share of its time
+limit (the tree's tests/torch_time_limits.json, the file's setup
+included where the test's setup built or read a shared fixture) that
+any port test used, and every port test above 60% of its limit. Each run's output (_t1.out) and
 junit report (_t1.xml) stay under --out.
 
-    python tools/torch_tier1_soak.py --size XML [XML ...] \\
-        > tests/torch_time_limits.json
+    python tools/torch_tier1_soak.py --size XML [XML ...]
+        [--keep OLD_TABLE] > tests/torch_time_limits.json
 
 writes the port tests' time limits (tests/torch_watchdog.py) from junit
 reports of runs under the watchdog (the runs' _t1.xml; a card run's
 report, e.g. chip_smoke.py's smoke_out/card_tests.xml). Each test's
-time is its setup, call and teardown together; the watchdog's property
-`watchdog_shared_setup_s` is the part of it that built module fixtures,
-which goes to the file's shared setup instead. A test's limit is
-FACTOR (3) times the most it took in any report, and at least FLOOR
-(60) seconds; a file's setup limit is FACTOR times its largest shared
-setup. A test that no report lists takes the floor; a test the table
-does not list at all, DEFAULT (600). The reference's
+time is its setup, call and teardown together; the watchdog's
+properties `watchdog_shared_setup_s` (the part of it that built module
+fixtures) and `watchdog_shared_read_s` (the part that waited for and
+read a fixture another worker built, torch_watchdog.once_per_run) are
+left out of its own time: a build sizes the file's setup limit, and a
+read waits at most for a build. A test's limit is FACTOR (2) times the
+most its own time took in any report, and at least FLOOR (60)
+seconds; a file's setup limit is the factor times its largest build.
+A time in a report then uses at most half its limit, under the SHARE
+(60%) a run is held to. No file's setup limit and test limit together
+may pass RUN_SHARE (2/3) of the Tier-1 command's own timeout: a stall
+in a file's heaviest fixture, begun when the run starts, is then ended
+by the watchdog with a third of the run left, and fails alone. A
+test that no report ran (a `gpu` case in CPU runs) takes the measured
+time of the table --keep names, else the floor; a test the table does
+not list at all, DEFAULT (600). The reference's
 tests that the watchdog also limits (torch_watchdog.REFERENCE_TESTS)
 are sized the same way.
 """
@@ -52,7 +66,9 @@ import xml.etree.ElementTree as ET
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 EXTRA = "-o faulthandler_timeout=300"
-FACTOR, FLOOR, DEFAULT = 3.0, 60.0, 600.0
+FACTOR, FLOOR, DEFAULT = 2.0, 60.0, 600.0
+SHARE = 0.6     # the most of its limit a port test may use in a run
+RUN_SHARE = 2 / 3   # the most of the command's timeout a setup + test limit
 
 _DUMP_START = re.compile(r"Timeout \(\d+:\d\d:\d\d\)!|Fatal Python error")
 
@@ -66,9 +82,19 @@ def tier1_command(roadmap: str) -> str:
     raise SystemExit(f"no Tier-1 verify line in {roadmap}")
 
 
+def command_timeout(command: str) -> float:
+    """The seconds the command's `timeout` gives the whole run."""
+    found = re.search(r"\btimeout (?:-k \S+ )?(\d+(?:\.\d+)?)\b", command)
+    if not found:
+        raise SystemExit(f"no timeout in {command!r}")
+    return float(found.group(1))
+
+
 def adapt(command: str, run_dir: str) -> str:
-    """The command with its log and junit in run_dir, and EXTRA."""
-    return (command.replace("/tmp/_t1.log", f"{run_dir}/_t1.log")
+    """The command with its log and junit in run_dir, EXTRA, and
+    `--dist load`."""
+    return (re.sub(r"--dist \S+", "--dist load", command)
+            .replace("/tmp/_t1.log", f"{run_dir}/_t1.log")
             .replace("/tmp/_t1.xml", f"{run_dir}/_t1.xml")
             .replace("python -m pytest tests/",
                      f"python -m pytest tests/ {EXTRA}", 1))
@@ -99,20 +125,42 @@ def dumps(log: str, head: int = 30) -> list:
 
 
 def junit_cases(xml_path: str) -> list:
-    """(node id, seconds, shared setup seconds, failed) of every test."""
+    """(node id, seconds, shared setup seconds built, failed, seconds
+    read from another worker, skipped) of every test."""
     if not os.path.exists(xml_path):
         return []
     cases = []
     for case in ET.parse(xml_path).getroot().iter("testcase"):
         path = case.get("classname", "").replace(".", "/") + ".py"
-        shared = [float(p.get("value")) for p in case.iter("property")
-                  if p.get("name") == "watchdog_shared_setup_s"]
+        props = {p.get("name"): float(p.get("value"))
+                 for p in case.iter("property")
+                 if p.get("name", "").startswith("watchdog_shared_")}
         failed = (case.find("failure") is not None
                   or case.find("error") is not None)
         cases.append((f"{path}::{case.get('name')}",
                       float(case.get("time", 0.0)),
-                      shared[0] if shared else 0.0, failed))
+                      props.get("watchdog_shared_setup_s", 0.0), failed,
+                      props.get("watchdog_shared_read_s", 0.0),
+                      case.find("skipped") is not None))
     return cases
+
+
+def limit_shares(cases: list, table: dict) -> list:
+    """(share of its limit, seconds, limit, node id) of every port test
+    in cases, largest first: its limit is the table's for it, plus its
+    file's setup where the test's setup built or read a shared
+    fixture."""
+    out = []
+    for nid, seconds, shared, _, read, _ in cases:
+        file, name = nid.split("::", 1)
+        entry = table["files"].get(os.path.basename(file))
+        if entry is None:
+            continue
+        limit = entry["tests"].get(name, table["default"])
+        if shared > 0 or read > 0:
+            limit += entry["setup"]
+        out.append((seconds / limit, seconds, limit, nid))
+    return sorted(out, reverse=True)
 
 
 def _key(text: str, name: str):
@@ -121,11 +169,12 @@ def _key(text: str, name: str):
 
 
 def report(run: int, copy: int, rc: int, seconds: float,
-           run_dir: str) -> dict:
+           run_dir: str, table: dict) -> dict:
     with open(os.path.join(run_dir, "_t1.out"), errors="replace") as f:
         out = f.read()
     cases = junit_cases(os.path.join(run_dir, "_t1.xml"))
     slowest = sorted(cases, key=lambda c: -c[1])[:5]
+    shares = limit_shares(cases, table)
     return {"run": run, "copy": copy, "rc": rc,
             "seconds": round(seconds, 1),
             "dots_passed": _key(out, "DOTS_PASSED"),
@@ -133,6 +182,9 @@ def report(run: int, copy: int, rc: int, seconds: float,
             "failed": [c[0] for c in cases if c[3]],
             "dumps": dumps(out),
             "slowest": [[round(c[1], 2), c[0]] for c in slowest],
+            "largest_limit_share": round(shares[0][0], 3) if shares else None,
+            "over_share": [[round(x, 3), round(t, 1), lim, nid]
+                           for x, t, lim, nid in shares if x > SHARE],
             "dir": run_dir}
 
 
@@ -157,17 +209,22 @@ def _ceil10(x: float) -> int:
 
 
 def size_limits(reports: list, order: list, reference: tuple,
-                factor: float, floor: float, default: float) -> dict:
+                factor: float, floor: float, default: float,
+                keep: dict = None) -> dict:
     """The time-limit table (tests/torch_watchdog.py) of the port's tests
     (node ids in `order`) and the reference's tests in `reference` from
-    the junit reports."""
+    the junit reports. keep: an earlier table, whose measured time a test
+    takes where no report ran it (every report that lists it skipped it:
+    a `gpu` case in CPU runs)."""
     own = {nid: 0.0 for nid in (*order, *reference)}
+    ran = set()
     shared: dict = {}
     for path in reports:
-        for nid, seconds, shared_s, _ in junit_cases(path):
+        for nid, seconds, shared_s, _, read_s, skipped in junit_cases(path):
             if nid not in own:
                 continue
-            own[nid] = max(own[nid], seconds - shared_s)
+            ran.update(() if skipped else (nid,))
+            own[nid] = max(own[nid], seconds - shared_s - read_s)
             file = os.path.basename(nid.split("::", 1)[0])
             shared[file] = max(shared.get(file, 0.0), shared_s)
     limit = lambda t: max(int(floor), _ceil10(factor * t))
@@ -179,6 +236,9 @@ def size_limits(reports: list, order: list, reference: tuple,
             "setup": _ceil10(factor * shared.get(file, 0.0)),
             "setup_measured": round(shared.get(file, 0.0), 2),
             "tests": {}, "measured": {}})
+        if keep and nid not in ran:
+            own[nid] = keep["files"].get(file, {}).get(
+                "measured", {}).get(name, own[nid])
         entry["tests"][name] = limit(own[nid])
         entry["measured"][name] = round(own[nid], 2)
     return {"factor": factor, "floor": floor, "default": default,
@@ -197,6 +257,9 @@ def main(argv=None) -> int:
     ap.add_argument("--concurrent", type=int, default=1,
                     help="copies of the command started at once per run")
     ap.add_argument("--tree", default=ROOT, help="the tree to test")
+    ap.add_argument("--keep", metavar="TABLE",
+                    help="--size: an earlier table whose measured time a "
+                         "test no report ran keeps (the gpu cases)")
     ap.add_argument("--out", default=None,
                     help="folder for logs and copies (default: a temp dir)")
     args = ap.parse_args(argv)
@@ -204,11 +267,17 @@ def main(argv=None) -> int:
     if args.size:
         sys.path.insert(0, os.path.join(tree, "tests"))
         from torch_watchdog import REFERENCE_TESTS
+        keep = None
+        if args.keep:
+            with open(args.keep) as f:
+                keep = json.load(f)
         table = size_limits(args.size, port_tests(tree), REFERENCE_TESTS,
-                            FACTOR, FLOOR, DEFAULT)
+                            FACTOR, FLOOR, DEFAULT, keep)
         print(json.dumps(table, indent=1, sort_keys=True))
         return 0
     command = tier1_command(os.path.join(tree, "ROADMAP.md"))
+    with open(os.path.join(tree, "tests", "torch_time_limits.json")) as f:
+        table = json.load(f)
     out = os.path.abspath(args.out or tempfile.mkdtemp(prefix="tier1_soak_"))
     os.makedirs(out, exist_ok=True)
     worst = 0
@@ -236,7 +305,8 @@ def main(argv=None) -> int:
                     ended[copy] = time.monotonic() - t0
             time.sleep(1.0)
         for copy, run_dir, p, _ in procs:
-            line = report(run, copy, p.returncode, ended[copy], run_dir)
+            line = report(run, copy, p.returncode, ended[copy], run_dir,
+                          table)
             worst = worst or p.returncode
             print(json.dumps(line), flush=True)
             shutil.rmtree(os.path.join(run_dir, "tree"), ignore_errors=True)
