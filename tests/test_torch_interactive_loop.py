@@ -18,6 +18,8 @@ import pytest
 
 import test_torch_interactive as ti
 import torch_watchdog
+from torch_brief_check import (FAULTS, assert_caught, check_brief,
+                               record_inserts)
 from vins_tpu.config import (CameraConfig, FrontendConfig, LoopConfig,
                              VinsConfig, WindowConfig)
 
@@ -79,15 +81,25 @@ def lockstep(request):
 def build_lockstep() -> dict:
     """The loop-on lockstep with a drift-free hit staged on both sides
     once both DBs hold two keyframes, recorded as plain data: outputs,
-    the staging, the port's BRIEF call count and loop counters, and each
-    system's DB and pose graph after the run (ti.loop_record)."""
+    the staging, the port's BRIEF call count and loop counters, each
+    system's DB and pose graph after the run (ti.loop_record), each
+    keyframe row's insert frame (torch_brief_check.record_inserts) and
+    that frame."""
     import jax
     from vins_tpu.loop.keyframe_db import LoopHit as JHit
     from vins_tpu_torch import interop
 
     staged = {}
+    frame, rows_j, rows_t = [0], [], []
+    _, imgs = ti.render_cached(CFG, n_frames=N_FRAMES, seed=ti.SEED,
+                               frame_dt=1.0 / 30.0, traj_kwargs=ti.TRAJ,
+                               imu_per_frame=2)
 
     def on_frame(k, sys_j, sys_t):
+        frame[0] = k + 1
+        if k == 0:   # before any keyframe is inserted (from the init on)
+            record_inserts(sys_j.loop, frame, imgs, rows_j)
+            record_inserts(sys_t.loop, frame, imgs, rows_t)
         # Stage on both sides once both DBs hold two keyframes.
         if staged or not sys_j.initialized or sys_j.loop.count < 2:
             return
@@ -114,11 +126,18 @@ def build_lockstep() -> dict:
     finally:
         mp.undo()
     return dict(outs_j=outs_j, outs_t=outs_t, staged=staged,
-                n_brief=len(n_brief),
+                n_brief=len(n_brief), rows_j=rows_j, rows_t=rows_t,
+                frames={k: imgs[k] for _, k in rows_j + rows_t},
                 after_j=ti.loop_record(sys_j, jax.device_get),
                 after_t=ti.loop_record(sys_t, interop.to_numpy),
                 loop_stats=dict(sys_t.loop_stats),
                 W_REFINED=sys_t.loop.W_REFINED)
+
+
+def _brief_record(s) -> dict:
+    """The lockstep's record as torch_brief_check.check_brief reads it."""
+    return dict(db_j=s["after_j"], db_t=s["after_t"], rows_j=s["rows_j"],
+                rows_t=s["rows_t"], frames=s["frames"])
 
 
 def test_loop_on_process_frame_matches_jax(lockstep):
@@ -138,8 +157,10 @@ def test_loop_on_process_frame_matches_jax(lockstep):
 
 
 def test_loop_on_db_and_constraint_lifecycle_match_jax(lockstep):
-    """The same keyframe inserts (rows, stored poses within 5e-3 m, BRIEF
-    words bit for bit away from the borders, BoW rows to 1e-5), the staged
+    """The same keyframe inserts (rows, stored poses within 5e-3 m, at
+    least 90% of the reference's stored keypoints kept by both, their
+    positions and BRIEF words held by torch_brief_check.check_brief, whose
+    readout is printed, BoW rows to 1e-5), the staged
     constraint refined and retired on both sides (edge promoted to the
     refined weight, no constraint pending), the same number of pose-graph
     runs, and the edge measurement and drift to 5e-3."""
@@ -150,7 +171,7 @@ def test_loop_on_db_and_constraint_lifecycle_match_jax(lockstep):
     np.testing.assert_allclose(lt["p"], lj["p"], atol=5e-3)
     both = lj["kp_ok"] & lt["kp_ok"]
     assert both.sum() >= 0.9 * lj["kp_ok"].sum()
-    np.testing.assert_array_equal(lt["desc"][both], lj["desc"][both])
+    print("\n".join(check_brief(_brief_record(s))))
     np.testing.assert_allclose(lt["bow"], lj["bow"], atol=1e-5)
     assert not lt["pending"] and not lj["pending"]
     assert lt["loop_w_host"] == lj["loop_w_host"] == [s["W_REFINED"]]
@@ -172,3 +193,14 @@ def test_brief_runs_once_per_keyframe_insert(lockstep):
     s = lockstep
     lt = s["after_t"]
     assert s["n_brief"] == lt["n_inserts"] == lt["kf_count"] >= 2
+
+
+@pytest.mark.parametrize("fault", FAULTS)
+def test_brief_check_catches_a_real_fault(lockstep, fault):
+    """check_brief on this lockstep's record with one fault planted in its
+    last keyframe row (torch_brief_check.assert_caught: a large-margin
+    bit of the port's stored words flipped, of the reference's, or the
+    port's stored keypoint moved 0.5 px): each fails the check, on that
+    row."""
+    rec = _brief_record(lockstep)
+    assert_caught(rec, fault, rec["db_j"]["count"] - 1)

@@ -27,6 +27,15 @@ systems reach 3.7e-3 m apart by frame 230 and 5.0e-3 m while the
 constraint rides, against the 5e-3 m per-frame tolerance, with every
 decision and loop event still equal (measured on this scene).
 
+Those two carries are all that passes between the systems (the
+reference forms its priors with the port's functions on its own
+inputs), so the lockstep runs as two halves: the reference's
+(revisit_reference), which writes the state the port takes as it
+goes, and the port's (revisit_port), which reads it. Under xdist the
+two are built at once in two workers (torch_watchdog orders their
+builders first), the port's waiting on the reference's only where it
+needs a state not written yet; elsewhere one after the other.
+
 Events, frame by frame, in both packages (rc.EVENTS, asserted): every
 keyframe from frame 24 on is inserted and scored every third keyframe;
 the detection gate first passes a candidate at frame 240 (DB row 24
@@ -39,6 +48,11 @@ a world point for the relative-pose PnP). The published
 drift-corrected trajectory's aligned ATE stays under
 tests/test_stream_parity.py's 0.15 m in both packages.
 """
+import os
+import pickle
+import tempfile
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -48,6 +62,8 @@ import torch
 import test_torch_interactive as ti
 import test_torch_interactive_revisit_card as rc
 import torch_watchdog
+from torch_brief_check import (FAULTS, assert_caught, check_brief,
+                               record_inserts)
 from test_torch_loop import jax_verify_noise
 from test_torch_stream import (carry_priors, check_carried_priors,
                                jax_ransac_noise)
@@ -59,7 +75,6 @@ from vins_tpu_torch import pipeline as t_pipe
 from vins_tpu_torch.core.preintegration import ImuChunk
 from vins_tpu_torch.io import synthetic as t_syn
 from vins_tpu_torch.ops import brief as t_brief
-from vins_tpu_torch.ops import image as t_image
 
 pytest_plugins = ["torch_watchdog"]
 
@@ -71,26 +86,14 @@ CFG = VinsConfig(camera=CameraConfig(**rc.CAM),
 TCFG = rc.TCFG
 N_FRAMES = rc.N_FRAMES
 CARRY_AT = rc.CARRY_AT
-# The BRIEF check (check_brief; ROADMAP, "Departures on purpose"): the
-# two packages' stored keypoints may lie KP_TOL px apart (measured: at
-# most 1.07e-4 px, in the three rows inserted after the carry), and a
-# bit whose float64 margin lies within ULP_BOUND float32 ulps of the
-# pair's larger tap may take either value (measured on this run's kept
-# keypoints by tools/torch_brief_margins.py: the port's float32 margin
-# lies at most 4.2 ulp from the float64 one, the reference's 23.3 ulp,
-# since its CPU branch rounds each tap's position to float32 on its own
-# where the port, as the TPU branch, reads every tap at the fraction of
-# one patch corner).
-KP_TOL = 1e-3
-ULP_BOUND = 32.0
 
 
-def _sequences(n_frames):
-    """The scene's JAX and port sequences and its frames (numpy)."""
+def _sequences():
+    """The scene's JAX and port sequences."""
     from vins_tpu.io.synthetic import make_synthetic_sequence
-    kw = rc.sequence_kwargs(n_frames)
-    tseq = t_syn.make_synthetic_sequence(TCFG, device="cpu", **kw)
-    return make_synthetic_sequence(CFG, **kw), rc.render(tseq).numpy(), tseq
+    kw = rc.sequence_kwargs(N_FRAMES)
+    return (make_synthetic_sequence(CFG, **kw),
+            t_syn.make_synthetic_sequence(TCFG, device="cpu", **kw))
 
 
 def carry_loop_state(sys_j, sys_t):
@@ -117,28 +120,59 @@ def carry_loop_state(sys_j, sys_t):
         lj.count, lj.n_loops, lj.count)
 
 
-def run_revisit(carry_at=CARRY_AT, n_frames=N_FRAMES, record_rows=False):
-    """Both systems through process_frame over the scene (ground-truth
-    bootstrap, the port's priors carried into the reference, the
-    reference's state carried into the port at the init frame and at
-    carry_at). Returns dict(seq, imgs, outs_j, outs_t, ev_j, ev_t, sys_j,
-    sys_t, carried, rows_j, rows_t); rows_*: (DB row, frame) of each
-    side's keyframe inserts (record_inserts), if record_rows."""
+def _reference_state(sys_j, loop: bool):
+    """What test_torch_interactive.carry_state (and carry_loop_state, if
+    loop) reads of the reference system, as plain data under the same
+    names."""
+    get = jax.device_get
+    ns = types.SimpleNamespace
+    state = ns(tracker=ns(state=get(sys_j.tracker.state)),
+               pnp=get(sys_j.pnp), est=get(sys_j.est),
+               _pending_chunk=get(sys_j._pending_chunk),
+               _last_good=get(sys_j._last_good), frame_idx=sys_j.frame_idx,
+               kf_count=sys_j.kf_count, _pending_loop=get(sys_j._pending_loop))
+    if loop:
+        lj = sys_j.loop
+        state.loop = ns(
+            db=get(lj.db), graph=get(lj.graph), bow=get(lj.bow),
+            r_drift=lj.r_drift.copy(), t_drift=lj.t_drift.copy(),
+            _r_drift_dev=get(lj._r_drift_dev),
+            _t_drift_dev=get(lj._t_drift_dev), last_match=lj.last_match,
+            count=lj.count, n_loops=lj.n_loops,
+            **{name: getattr(lj, name).copy() for name in (
+                "_segments_np", "_kf_t_np", "_uid_np", "_kf_p_np",
+                "_kf_yaw_np")})
+    return state
+
+
+def _dump(path: str, value) -> None:
+    with open(path + ".tmp", "wb") as f:
+        pickle.dump(value, f, protocol=pickle.HIGHEST_PROTOCOL)
+    os.replace(path + ".tmp", path)
+
+
+def _reference_half(folder: str):
+    """The reference's half of the lockstep, alone: the JAX system through
+    process_frame over the scene (ground-truth bootstrap, the port's
+    priors carried into it: carry_priors applies the port's functions to
+    the reference's own inputs, so this half needs nothing of the port's
+    run). It writes the scene's frames to folder/frames first; after each
+    frame it writes its frame index to folder/progress,
+    and after the init frame and frame CARRY_AT, first, the state the
+    port takes at that frame to folder/state_K.pkl (and the init frame's
+    index to folder/init). Returns the reference's record: outputs, loop
+    events, inserts and their frames, carried priors, ground-truth
+    positions, DB and pose graph (loop_record)."""
     from vins_tpu.core import feature_manager as j_fm
     from vins_tpu.core.initialization import InitResult, InitStatus
     from vins_tpu.core.state import WindowState as JWindow
     from vins_tpu import pipeline as j_pipe
 
-    seq, imgs, tseq = _sequences(n_frames)
+    seq, tseq = _sequences()
+    imgs = rc.render(tseq).numpy()
+    _dump(os.path.join(folder, "frames"), imgs)
     F, M = CFG.window.num_frames, CFG.window.max_landmarks
-    noise = jax_ransac_noise(0, n_frames, CFG.frontend.f_ransac_hyps,
-                             CFG.frontend.max_features)
     sys_j = j_pipe.VinsSystem(CFG, use_loop=True, ext=seq.ext)
-    sys_t = t_pipe.VinsSystem(
-        TCFG, ext=tseq.ext, device="cpu", use_loop=True,
-        initializer=t_syn.ground_truth_initializer(tseq, TCFG))
-    sys_t.loop.ransac_noise = jax_verify_noise(
-        0, CFG.loop.geo_ransac_hyps, CFG.loop.max_kf_features)
 
     def gt_initialize(feats, chunks, ext, cfg):
         cur = sys_j.frame_idx - 1
@@ -149,66 +183,103 @@ def run_revisit(carry_at=CARRY_AT, n_frames=N_FRAMES, record_rows=False):
         return InitResult(j_fm.triangulate(win, feats, ext, cfg),
                           InitStatus.SUCCESS)
 
-    frame = [0]
-    ev_j, ev_t = [], []
+    frame, ev_j, rows_j = [0], [], []
     rc.record_loop_events(sys_j, frame, ev_j, jax.device_get)
-    rc.record_loop_events(sys_t, frame, ev_t, interop.to_numpy)
-    rows_j, rows_t = [], []
-    if record_rows:
-        record_inserts(sys_j.loop, frame, imgs, rows_j)
-        record_inserts(sys_t.loop, frame, imgs, rows_t)
+    record_inserts(sys_j.loop, frame, imgs, rows_j)
     mp = pytest.MonkeyPatch()
     mp.setattr(j_pipe.init_mod, "initialize", gt_initialize)
     carried = carry_priors(mp, j_pipe, TCFG)
     sys_j._refine_init = lambda w, fe, ch: (w, 0.0)
-    outs_j, outs_t = [], []
+    outs_j = []
     try:
-        for k in range(n_frames):
+        for k in range(N_FRAMES):
             frame[0] = k
-            t = float(seq.timestamps[k])
             outs_j.append(sys_j.process_frame(
                 jnp.asarray(imgs[k]), jax.tree.map(lambda x: x[k],
-                                                   seq.chunks), t=t))
-            outs_t.append(sys_t.process_frame(
-                torch.as_tensor(imgs[k]),
-                ImuChunk(*[x[k] for x in tseq.chunks]), t=t,
-                gumbel=torch.as_tensor(noise[k])))
-            if outs_j[-1].initialized and not outs_j[-2].initialized:
-                ti.carry_state(sys_j, sys_t)
-            if k == carry_at:
-                carry_loop_state(sys_j, sys_t)
+                                                   seq.chunks),
+                t=float(seq.timestamps[k])))
+            init = outs_j[-1].initialized and not outs_j[-2].initialized
+            if init or k == CARRY_AT:
+                _dump(os.path.join(folder, f"state_{k}.pkl"), dict(
+                    init=init, loop=k == CARRY_AT,
+                    state=_reference_state(sys_j, k == CARRY_AT)))
+            if init:
+                _dump(os.path.join(folder, "init"), k)
+            _dump(os.path.join(folder, "progress"), k)
         jax.effects_barrier()
     finally:
         mp.undo()
     assert sys_j.loop._key_pool is None   # verify keys from its key chain
-    return dict(seq=seq, imgs=imgs, outs_j=outs_j, outs_t=outs_t, ev_j=ev_j,
-                ev_t=ev_t, sys_j=sys_j, sys_t=sys_t, carried=carried,
-                rows_j=rows_j, rows_t=rows_t)
+    return dict(outs_j=outs_j, ev_j=ev_j, rows_j=rows_j, carried=carried,
+                gt_p=np.asarray(seq.p),
+                frames={k: imgs[k] for _, k in rows_j},
+                db_j=ti.loop_record(sys_j, jax.device_get))
 
 
-def record_inserts(lc, frame, imgs, rows):
-    """Record in rows, insert by insert, (DB row, frame) of every keyframe
-    the loop closer lc inserts (frame[0]: the frame being processed),
-    holding the image it was given to the scene's raw frame."""
-    add = lc.add_keyframe
+class _States:
+    """The frames and states _reference_half writes to `folder` for the
+    port, read as the port's half needs them; follow(ready) waits until
+    ready() while the reference's half is still running (None: it has
+    ended)."""
 
-    def on_add(img, *args, **kwargs):
-        np.testing.assert_array_equal(np.asarray(img), imgs[frame[0]])
-        idx = add(img, *args, **kwargs)
-        rows.append((int(idx), frame[0]))
-        return idx
+    def __init__(self, folder: str, follow=None):
+        self.folder, self.follow = folder, follow
 
-    lc.add_keyframe = on_add
+    def _read(self, name: str, default=None):
+        try:
+            with open(os.path.join(self.folder, name), "rb") as f:
+                return pickle.load(f)
+        except FileNotFoundError:
+            return default
+
+    def _none_at(self, k: int) -> bool:
+        """Whether the reference leaves no state after frame k (it has
+        left its init frame's, and k is neither that nor CARRY_AT)."""
+        init = self._read("init")
+        return init is not None and k != init and k != CARRY_AT
+
+    def frames(self):
+        """The scene's frames, as the reference rendered them."""
+        if self.follow is not None:
+            self.follow(lambda: os.path.exists(
+                os.path.join(self.folder, "frames")))
+        return self._read("frames")
+
+    def state(self, k: int):
+        """The state the reference left for the port after frame k, or
+        None; waits for the reference to pass frame k unless it is known
+        to leave none there."""
+        ready = lambda: self._none_at(k) or self._read("progress", -1) >= k
+        if self.follow is not None:
+            self.follow(ready)
+        assert ready(), f"the reference's half has not passed frame {k}"
+        return self._read(f"state_{k}.pkl")
 
 
-def build_revisit() -> dict:
-    """run_revisit's lockstep, recorded as plain data: both packages'
-    outputs and loop events, their DBs and pose graphs after the run
-    (test_torch_interactive.loop_record), each keyframe row's insert
-    frame and that frame, the priors carried into the reference, the
-    ground-truth positions, and the port's BRIEF call count and loop
-    counters."""
-    n_brief = []
+def _port_half(states) -> dict:
+    """The port's half of the lockstep: the port's system through
+    process_frame over the same frames (ground-truth bootstrap, the
+    reference's RANSAC noise) on the frames the reference rendered
+    (states.frames()), taking the reference's state after each
+    frame it left one for (states.state(k): test_torch_interactive.
+    carry_state at the init frame, carry_loop_state after CARRY_AT).
+    Returns the port's record: outputs, loop events, inserts and the
+    frames of them, bootstrap states, DB and pose graph, BRIEF call count
+    and loop counters."""
+    from vins_tpu import pipeline as j_pipe
+
+    seq, tseq = _sequences()
+    imgs = states.frames()
+    noise = jax_ransac_noise(0, N_FRAMES, CFG.frontend.f_ransac_hyps,
+                             CFG.frontend.max_features)
+    sys_t = t_pipe.VinsSystem(
+        TCFG, ext=tseq.ext, device="cpu", use_loop=True,
+        initializer=t_syn.ground_truth_initializer(tseq, TCFG))
+    sys_t.loop.ransac_noise = jax_verify_noise(
+        0, CFG.loop.geo_ransac_hyps, CFG.loop.max_kf_features)
+    frame, ev_t, rows_t, n_brief = [0], [], [], []
+    rc.record_loop_events(sys_t, frame, ev_t, interop.to_numpy)
+    record_inserts(sys_t.loop, frame, imgs, rows_t)
     extract = t_brief.extract_brief
 
     def counted(*args, **kwargs):
@@ -217,28 +288,100 @@ def build_revisit() -> dict:
 
     mp = pytest.MonkeyPatch()
     mp.setattr(t_brief, "extract_brief", counted)
+    carried = carry_priors(mp, j_pipe, TCFG)
+    outs_t = []
     try:
-        out = run_revisit(record_rows=True)
+        for k in range(N_FRAMES):
+            frame[0] = k
+            outs_t.append(sys_t.process_frame(
+                torch.as_tensor(imgs[k]),
+                ImuChunk(*[x[k] for x in tseq.chunks]),
+                t=float(seq.timestamps[k]),
+                gumbel=torch.as_tensor(noise[k])))
+            got = states.state(k)
+            if got is not None:
+                carry = carry_loop_state if got["loop"] else ti.carry_state
+                carry(got["state"], sys_t)
     finally:
         mp.undo()
-    sys_j, sys_t = out["sys_j"], out["sys_t"]
-    frames = sorted({k for _, k in out["rows_j"] + out["rows_t"]})
+    return dict(outs_t=outs_t, ev_t=ev_t, rows_t=rows_t,
+                frames={k: imgs[k] for _, k in rows_t},
+                t=carried["t"], t_args=carried["t_args"],
+                db_t=ti.loop_record(sys_t, interop.to_numpy),
+                n_brief=len(n_brief), W_REFINED=sys_t.loop.W_REFINED,
+                loop_stats=dict(sys_t.loop_stats))
+
+
+def _merge(ref: dict, port: dict) -> dict:
+    """The lockstep's record from its two halves' (build_revisit)."""
     return dict(
-        outs_j=out["outs_j"], outs_t=out["outs_t"], ev_j=out["ev_j"],
-        ev_t=out["ev_t"], carried=out["carried"],
-        gt_p=np.asarray(out["seq"].p), n_brief=len(n_brief),
-        db_j=ti.loop_record(sys_j, jax.device_get),
-        db_t=ti.loop_record(sys_t, interop.to_numpy),
-        rows_j=out["rows_j"], rows_t=out["rows_t"],
-        frames={k: out["imgs"][k] for k in frames},
-        W_REFINED=sys_t.loop.W_REFINED, loop_stats=dict(sys_t.loop_stats))
+        outs_j=ref["outs_j"], outs_t=port["outs_t"], ev_j=ref["ev_j"],
+        ev_t=port["ev_t"],
+        carried=dict(ref["carried"], t=port["t"], t_args=port["t_args"]),
+        gt_p=ref["gt_p"], n_brief=port["n_brief"], db_j=ref["db_j"],
+        db_t=port["db_t"], rows_j=ref["rows_j"], rows_t=port["rows_t"],
+        frames={**ref["frames"], **port["frames"]},
+        W_REFINED=port["W_REFINED"],
+        loop_stats=port["loop_stats"])
+
+
+def build_revisit() -> dict:
+    """The lockstep, recorded as plain data: both packages' outputs and
+    loop events, their DBs and pose graphs after the run
+    (test_torch_interactive.loop_record), each keyframe row's insert
+    frame and that frame, the priors carried into the reference, the
+    ground-truth positions, and the port's BRIEF call count and loop
+    counters. The two halves share nothing but the state the port takes
+    from the reference at two frames (_reference_half, _port_half), so
+    running them one after the other gives the record both systems make
+    stepping frame by frame; the test fixtures run them in two processes
+    at once (revisit_reference, revisit_port)."""
+    with tempfile.TemporaryDirectory(prefix="revisit_") as folder:
+        ref = _reference_half(folder)
+        return _merge(ref, _port_half(_States(folder)))
 
 
 @pytest.fixture(scope="module")
-def revisit(request):
-    """build_revisit's record, built once per test run
-    (torch_watchdog.once_per_run)."""
-    return torch_watchdog.once_per_run(request, build_revisit)
+def revisit_reference(request):
+    """The reference's half (_reference_half), built once per test run;
+    the states it leaves for the port go to a folder of the run that
+    revisit_port's build reads while this one runs."""
+    folder = torch_watchdog.shared_dir(request, "revisit_reference")
+    return torch_watchdog.once_per_run(request,
+                                       lambda: _reference_half(folder))
+
+
+@pytest.fixture(scope="module")
+def revisit_port(request):
+    """The port's half (_port_half), built once per test run, beside the
+    reference's half in another process of the run: it takes each state
+    as the reference's build writes it (torch_watchdog.follow_build), or,
+    where no process has begun the reference's half (outside xdist, or
+    without its builder in the run), builds or reads that first."""
+    folder = torch_watchdog.shared_dir(request, "revisit_reference")
+    if not torch_watchdog.build_begun(request, "revisit_reference"):
+        request.getfixturevalue("revisit_reference")
+    follow = lambda ready: torch_watchdog.follow_build(
+        request, "revisit_reference", ready)
+    return torch_watchdog.once_per_run(
+        request, lambda: _port_half(_States(folder, follow)))
+
+
+@pytest.fixture(scope="module")
+def revisit(revisit_port, revisit_reference):
+    """build_revisit's record, from the two halves built once per test
+    run (the port's first: it runs beside the reference's)."""
+    return _merge(revisit_reference, revisit_port)
+
+
+def test_revisit_reference_alone(revisit_reference):
+    """The reference's half, run in a process of its own: the loop events
+    of rc.EVENTS on their frames, and its published trajectory's aligned
+    ATE under ATE_MAX (the port's half runs beside it, in another
+    process, on the states it leaves)."""
+    assert rc.event_frames(revisit_reference["ev_j"]) == rc.EVENTS
+    assert rc.aligned_ate(revisit_reference["outs_j"],
+                          revisit_reference["gt_p"]) < rc.ATE_MAX
 
 
 def _close(a, b, atol, what):
@@ -327,134 +470,6 @@ def test_revisit_aligned_ate_under_the_guard(revisit):
     assert abs(ate_t - ate_j) < 5e-3
 
 
-def blur64(raw: np.ndarray) -> np.ndarray:
-    """The BRIEF blur of raw [H, W] in float64: the 5 taps of
-    image.gaussian_taps(2.0) (float32 values, as both packages hold
-    them), reflect-101, rows then columns."""
-    taps = np.asarray(t_image.gaussian_taps(2.0), np.float64)
-    out = np.asarray(raw, np.float64)
-    for axis in (0, 1):
-        n = out.shape[axis]
-        acc = np.zeros_like(out)
-        for t, w in enumerate(taps):
-            j = np.arange(n) + t - len(taps) // 2
-            j = np.where(j < 0, -j, j)
-            j = np.where(j >= n, 2 * n - 2 - j, j)
-            acc += w * np.take(out, j, axis=axis)
-        out = acc
-    return out
-
-
-def _bilinear64(img, x, y):
-    """Bilinear samples of img at (x, y), each point clamped inside the
-    frame (no inserted keypoint's pair comes near a border: insert keeps
-    keypoints PATCH_HALF + 4 px inside it; unused slots hold any value)."""
-    H, W = img.shape
-    x = np.clip(np.nan_to_num(x), 0.0, W - 1.001)
-    y = np.clip(np.nan_to_num(y), 0.0, H - 1.001)
-    x0, y0 = np.floor(x).astype(np.int64), np.floor(y).astype(np.int64)
-    fx, fy = x - x0, y - y0
-    return ((1 - fy) * ((1 - fx) * img[y0, x0] + fx * img[y0, x0 + 1])
-            + fy * ((1 - fx) * img[y0 + 1, x0] + fx * img[y0 + 1, x0 + 1]))
-
-
-def margins64(blur: np.ndarray, pts: np.ndarray):
-    """([N, 256] float64 margin ib - ia of every pattern pair, where bit
-    k is ib > ia, at keypoints pts [N, 2] (pixel x, y) of the float64 blur;
-    [N, 256] the float32 ulp of the pair's larger tap)."""
-    pat = t_brief.make_pattern().astype(np.float64)
-    x = pts[:, 0].astype(np.float64)[:, None]
-    y = pts[:, 1].astype(np.float64)[:, None]
-    ia = _bilinear64(blur, x + pat[:, 0], y + pat[:, 1])
-    ib = _bilinear64(blur, x + pat[:, 2], y + pat[:, 3])
-    top = np.maximum(np.abs(ia), np.abs(ib)).astype(np.float32)
-    return ib - ia, np.spacing(top).astype(np.float64)
-
-
-def _bits(desc: np.ndarray) -> np.ndarray:
-    """[N, 8] int32 words -> [N, 256] bool (bit 32 w + j is bit j of
-    word w)."""
-    w = desc.astype(np.int64)[:, :, None] & 0xFFFFFFFF
-    return ((w >> np.arange(32)) & 1).reshape(desc.shape[0], -1) > 0
-
-
-def check_brief(rec) -> list:
-    """The revisit's keyframe rows against the reference (ROADMAP,
-    "Departures on purpose": BRIEF words at drifted keypoints). Every
-    row's insert frame is the same on both sides, and on every row:
-    - each keypoint both keep lies within KP_TOL px of the reference's,
-      and a keypoint a side does not keep has words 0 there;
-    - the port's extract_brief (its CPU path: the blur and K3's plain
-      version) on the row's raw frame at the reference's keypoints gives
-      the reference's stored words bit for bit, but for a bit whose
-      float64 margin is within ULP_BOUND float32 ulps of the pair's
-      larger tap (the two blurs' round-off);
-    - every bit where the two stored words differ is one whose float64
-      margin changes sign between the two packages' positions, or is
-      within ULP_BOUND ulps at either.
-    Returns the readout of every differing bit (row, frame, keypoint,
-    both positions, pattern pair, each side's bit and float64 margin at
-    its own position); raises AssertionError with it if a check fails."""
-    dj, dt = rec["db_j"], rec["db_t"]
-    n = dj["count"]
-    faults, lines = [], []
-    frame_of = dict(rec["rows_j"])
-    if dict(rec["rows_t"]) != frame_of or sorted(frame_of) != list(range(n)):
-        faults.append(f"insert frames differ: reference {rec['rows_j']}, "
-                      f"port {rec['rows_t']}")
-    both = dj["kp_ok"] & dt["kp_ok"]
-    dpx = np.abs(dt["kp_px"] - dj["kp_px"]).max(-1)
-    for r, kp in zip(*np.nonzero(both & (dpx > KP_TOL))):
-        faults.append(f"row {r} keypoint {kp}: port {dt['kp_px'][r, kp]} px, "
-                      f"reference {dj['kp_px'][r, kp]} px, {dpx[r, kp]:.3g} "
-                      f"px apart (tolerance {KP_TOL})")
-    lines.append(f"stored keypoints both keep: {int(both.sum())}, kept by "
-                 f"one side only: {int((dj['kp_ok'] != dt['kp_ok']).sum())}, "
-                 f"largest position difference {dpx[both].max():.3g} px")
-    for side, d in (("port", dt), ("reference", dj)):
-        for r, kp in zip(*np.nonzero(~d["kp_ok"] & np.any(d["desc"] != 0,
-                                                          -1))):
-            faults.append(f"{side}: row {r} keypoint {kp} is not kept but "
-                          f"its words are not 0")
-
-    def pair(r, kp, k, where, px, bit, m, ulp):
-        return (f"{where}: row {r} (frame {frame_of.get(r)}) keypoint {kp} "
-                f"pair {k} (word {k // 32} bit {k % 32}) at "
-                f"({px[0]:.5f}, {px[1]:.5f}) px: bit {int(bit)}, float64 "
-                f"margin {m:+.3g} ({abs(m) / ulp:.2f} ulp)")
-
-    for r in range(n):
-        raw = rec["frames"][frame_of[r]]
-        blur = blur64(raw)
-        mj, uj = margins64(blur, dj["kp_px"][r])
-        mt, ut = margins64(blur, dt["kp_px"][r])
-        bj, bt = _bits(dj["desc"][r]), _bits(dt["desc"][r])
-        redo = _bits(t_brief.extract_brief(
-            torch.as_tensor(raw), torch.as_tensor(dj["kp_px"][r]),
-            torch.as_tensor(dj["kp_ok"][r])).numpy())
-        for kp, k in zip(*np.nonzero(redo != bj)):
-            line = pair(r, kp, k, "port at the reference's keypoint",
-                        dj["kp_px"][r, kp], redo[kp, k], mj[kp, k],
-                        uj[kp, k]) + f"; reference bit {int(bj[kp, k])}"
-            inside = abs(mj[kp, k]) <= ULP_BOUND * uj[kp, k]
-            (lines if inside else faults).append(line)
-        for kp, k in zip(*np.nonzero((bt != bj) & both[r][:, None])):
-            flips = np.sign(mt[kp, k]) != np.sign(mj[kp, k])
-            inside = min(abs(mt[kp, k]) / ut[kp, k],
-                         abs(mj[kp, k]) / uj[kp, k]) <= ULP_BOUND
-            line = (pair(r, kp, k, "stored words differ; port",
-                         dt["kp_px"][r, kp], bt[kp, k], mt[kp, k], ut[kp, k])
-                    + "; " + pair(r, kp, k, "reference", dj["kp_px"][r, kp],
-                                  bj[kp, k], mj[kp, k], uj[kp, k])
-                    + ("; the margin changes sign between the positions"
-                       if flips else ""))
-            (lines if flips or inside else faults).append(line)
-    if faults:
-        raise AssertionError("\n".join(["BRIEF check failed:", *faults,
-                                         "readout:", *lines]))
-    return lines
-
-
 def test_revisit_db_and_pose_graph_match_jax(revisit):
     """After the run: the same keyframe rows (stored poses to 5e-3 m,
     BoW rows to 1e-5; keypoints and BRIEF words by check_brief, whose
@@ -483,37 +498,14 @@ def test_revisit_db_and_pose_graph_match_jax(revisit):
         retired=1)
 
 
-@pytest.mark.parametrize("fault", ["port_word_flipped",
-                                   "reference_word_flipped",
-                                   "port_keypoint_shifted"])
+@pytest.mark.parametrize("fault", FAULTS)
 def test_brief_check_catches_a_real_fault(revisit, fault):
     """check_brief on the run's record with one fault planted in the last
-    row (inserted after the carry), at the first keypoint both keep and
-    its pair of largest float64 margin: a stored bit of the port's words
-    flipped (the stored-word check fails: no sign change, far from the
-    ulp bound), the reference's (the re-extraction fails), or the port's
-    stored keypoint moved by 0.5 px (the position check fails)."""
-    rec = dict(revisit, db_j=dict(revisit["db_j"]),
-               db_t=dict(revisit["db_t"]))
-    dj, dt = rec["db_j"], rec["db_t"]
-    r = dj["count"] - 1
-    assert dict(rec["rows_j"])[r] > CARRY_AT
-    kp = int(np.nonzero(dj["kp_ok"][r] & dt["kp_ok"][r])[0][0])
-    blur = blur64(rec["frames"][dict(rec["rows_j"])[r]])
-    m, _ = margins64(blur, dj["kp_px"][r, kp:kp + 1])
-    k = int(np.argmax(np.abs(m[0])))
-    side = dt if fault.startswith("port") else dj
-    if fault.endswith("shifted"):
-        side["kp_px"] = side["kp_px"].copy()
-        side["kp_px"][r, kp, 0] += 0.5
-        expect = "px apart"
-    else:
-        side["desc"] = side["desc"].copy()
-        words = side["desc"][r, kp].view(np.uint32)
-        words[k // 32] ^= np.uint32(1 << (k % 32))
-        expect = ("stored words differ" if fault.startswith("port")
-                  else "port at the reference's keypoint")
-    with pytest.raises(AssertionError) as err:
-        check_brief(rec)
-    failed = str(err.value).split("readout:")[0]
-    assert expect in failed and f"row {r}" in failed, str(err.value)
+    row (inserted after the carry) by torch_brief_check.assert_caught: a
+    stored bit of the port's words flipped (the stored-word check fails:
+    no sign change, far from the ulp bound), the reference's (the
+    re-extraction fails), or the port's stored keypoint moved by 0.5 px
+    (the position check fails)."""
+    r = revisit["db_j"]["count"] - 1
+    assert dict(revisit["rows_j"])[r] > CARRY_AT
+    assert_caught(revisit, fault, r)

@@ -1,5 +1,6 @@
 """The revisit lockstep's BRIEF words against float64, on the CPU: the
-readout of tests/test_torch_interactive_revisit.py's check_brief, and
+readout of tests/torch_brief_check.py's check_brief on
+tests/test_torch_interactive_revisit.py's record, and
 how far each package's float32 pair margins lie from their float64
 values.
 
@@ -19,7 +20,7 @@ branch of extract_brief computes them: each tap's position rounded to
 float32 on its own) and the port's (ops/image.py's blur, one fraction
 for every tap from the patch corner, the bilinear blend in the order of
 brief_cuda.extract_brief_words_plain). The largest of those readings is
-what ULP_BOUND in the test file is measured against.
+what ULP_BOUND in tests/torch_brief_check.py is measured against.
 """
 import json
 import os
@@ -83,10 +84,11 @@ def _reference_margins(raw, pts, pat):
 def main() -> None:
     import conftest  # noqa: F401  (JAX on the CPU, as the tests run it)
     import test_torch_interactive_revisit as tr
+    import torch_brief_check as bc
 
     rec = tr.build_revisit()
     try:
-        print("\n".join(tr.check_brief(rec)))
+        print("\n".join(bc.check_brief(rec)))
     except AssertionError as e:
         print(e)
     dj = rec["db_j"]
@@ -96,7 +98,7 @@ def main() -> None:
         frame = dict(rec["rows_j"])[r]
         raw = rec["frames"][frame]
         pts = dj["kp_px"][r][dj["kp_ok"][r]]
-        m64, ulp = tr.margins64(tr.blur64(raw), pts)
+        m64, ulp = bc.margins64(bc.blur64(raw), pts)
         rows.append(dict(
             row=r, frame=frame, keypoints=int(len(pts)),
             least_margin_ulp=float(np.min(np.abs(m64) / ulp)),
@@ -105,7 +107,7 @@ def main() -> None:
             reference_error_ulp=float(np.max(np.abs(
                 _reference_margins(raw, pts, pat) - m64) / ulp))))
     print(json.dumps(dict(
-        rows=rows, ulp_bound=tr.ULP_BOUND, kp_tol=tr.KP_TOL,
+        rows=rows, ulp_bound=bc.ULP_BOUND, kp_tol=bc.KP_TOL,
         largest_error_ulp=max(max(r["port_error_ulp"],
                                   r["reference_error_ulp"]) for r in rows),
         least_margin_ulp=min(r["least_margin_ulp"] for r in rows))))
